@@ -9,25 +9,46 @@ non-zero and prints no result:
 
 1. device: the card's name and power limit (``nvidia-smi``), the torch and
    CUDA versions. Without a card the script exits 1.
-2. build: K1 (``csrc/fused_decode.cu``) with one ``nvcc`` call, with the
-   ``-Xptxas -v`` summary and the build seconds.
-3. K1 against its plain PyTorch version on the card, with the shipped
+2. build: the three kernels, K1 (``csrc/fused_decode.cu``), K2
+   (``csrc/fused_beam.cu``) and K3 (``csrc/decode_attention.cu``), one
+   ``nvcc`` call each, all started together, each with its ``-Xptxas -v``
+   summary and its build seconds.
+3. k1: K1 against its plain PyTorch version on the card, with the shipped
    decoder weights (``models_demo``), on encoder sequences of glyph crops
    drawn from a numpy seed at B = 1, 13 and 80, and on the golden image's
    own glyphs. float32 (TF32 off): every row's tokens identical, or the
    plain version's top-2 logit gap at the first differing step below
    ``F32_GAP``. bfloat16: token agreement at least ``BF16_AGREE`` of the
    positions. Both are timed with CUDA events.
-4. main path: the port's ``cli.run`` with ``models_demo`` on
+4. main: the port's ``cli.run`` with ``models_demo`` on
    ``tests/golden/golden_input.png`` and the inputs of ``data_pseudo_real``,
    writing to a temporary directory. ``run`` must return one result per
    input, every output file must exist, the golden mask must agree with
    ``tests/golden/expected_BINARIZED.png`` on at least ``MASK_AGREE`` of the
    pixels, and K1 must have launched once per image that has glyphs.
+5. k2: K2 against its plain version at K = ``BEAM`` on the golden glyphs
+   and the synthetic B = 13 sequences, in float32 and bfloat16. float32:
+   every beam's tokens and length identical, or the plain version's
+   smallest gap between neighbouring candidates among the K + 1 best, at or
+   after the first differing position, below ``F32_GAP``; scores of
+   identical images within ``SCORE_RTOL``. bfloat16: at least
+   ``BF16_AGREE`` of the decoded token positions agree. And K2 at K = 1
+   gives K1's float32 tokens (K1's bar). Timed with CUDA events.
+6. k3: K3 against its plain version with bfloat16 streams at B = 1, 13 and
+   80 (synthetic) and on the golden glyphs, P = 196, the shipped attention
+   weights: ``out`` and ``alpha`` within ``K3_ATOL`` + ``K3_RTOL`` * |plain|.
+   Then ``greedy_decode(fused=True)`` on the golden glyphs: K3 launches
+   once per decoded step, and its tokens meet K1's bars against the same
+   entry run on the plain version.
+7. main-beam: ``cli.run`` as in phase 4 with ``--decode beam --beam-size
+   5``: one result per input, every output file, the golden mask, and K2
+   launched once per image that has glyphs (K1 not at all). The golden
+   beam strokes' chamfer distance to ``tests/golden/expected_STROKES.json``
+   is recorded, not held to a bound.
 
-Then one JSON line with the kernel table and, last, one JSON line
-``{"ok": true, "device": {...}}``. ``--out`` also writes everything to a
-JSON file.
+Then one JSON line with the kernel table (K1, K2, K3) and, last, one JSON
+line ``{"ok": true, "device": {...}}``. ``--out`` also writes everything to
+a JSON file.
 """
 
 from __future__ import annotations
@@ -36,11 +57,13 @@ import argparse
 import contextlib
 import io
 import json
+import math
 import re
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -53,6 +76,13 @@ BF16_AGREE = 0.95   # share of bfloat16 token positions that must agree
 MASK_AGREE = 0.999  # share of golden mask pixels that must agree
 MAX_LENGTH = 384
 K1_BATCHES = (1, 13, 80)  # synthetic-glyph batch sizes for phase 3
+BEAM = 5            # the beam size of phases 5 and 7
+K2_BATCH = 13       # synthetic-glyph batch size for phase 5
+SCORE_RTOL = 1e-5   # float32 beam scores, K2 against its plain version
+K3_BATCHES = (1, 13, 80)  # synthetic-glyph batch sizes for phase 6
+# K3 and its plain version both sum in float32, in other orders.
+K3_ATOL, K3_RTOL = 1e-5, 1e-4
+LIBS = ("fused_decode", "fused_beam", "decode_attention")
 
 # H100 SXM published peaks (NVIDIA data sheet), used for bound_ms.
 HBM_BYTES_PER_S = 3.35e12
@@ -169,6 +199,252 @@ def compare_k1(fd, decoder, seq, dtype, label: str) -> dict:
     return rec
 
 
+def weight_bytes(w: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in w.values())
+
+
+def k2_cost(enc, enc_proj, w: dict, lens, k: int) -> dict:
+    """Bytes, operations and bounds of one fused beam decode on these
+    inputs: rows = B * K beams, each image stepping until its beams have
+    finished (its longest beam)."""
+    b, p, e = enc.shape
+    a = enc_proj.shape[-1]
+    hdim = w["wh"].shape[0]
+    v, d = w["emb"].shape
+    wbytes = weight_bytes(w)
+    io_bytes = (enc.numel() * enc.element_size() * 2  # enc, enc_proj
+                + 2 * b * hdim * enc.element_size()
+                + b * k * (MAX_LENGTH * 4 + 8))  # preds, score, lens
+    step_flops = (2 * hdim * a + 2 * hdim * e + 2 * (d + e) * 4 * hdim
+                  + 2 * hdim * 4 * hdim + 2 * hdim * v + 3 * p * a
+                  + 2 * p * e + 5 * v)
+    steps = lens.max(dim=1).values
+    flops = int(steps.sum()) * k * step_flops
+    dtype = "bfloat16" if enc.element_size() == 2 else "float32"
+    by_bytes = (wbytes + io_bytes) / HBM_BYTES_PER_S
+    by_ops = flops / PEAK_FLOPS[dtype]
+    # One block per image re-reads the weights and the image's encoder rows
+    # once per group of up to 8 beams at every step.
+    passes = math.ceil(k / 8)
+    stream_s = (int(steps.sum()) * passes
+                * (wbytes + p * (e + a) * enc.element_size())
+                ) / HBM_BYTES_PER_S
+    return {"bytes_once": wbytes + io_bytes, "flops": flops,
+            "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "stream_bound_ms": stream_s * 1e3,
+            "steps_max": int(steps.max()), "steps_sum": int(steps.sum())}
+
+
+def k3_cost(enc, enc_proj, h, att_w) -> dict:
+    """Bytes, operations and bound of one fused attention + gate: every
+    input read once as bfloat16, out and alpha written once as float32."""
+    b, p, e = enc.shape
+    a = enc_proj.shape[-1]
+    d = h.shape[-1]
+    in_bytes = 2 * (enc.numel() + enc_proj.numel() + h.numel()
+                    + sum(t.numel() for t in att_w))
+    out_bytes = 4 * (b * e + b * p)
+    flops = b * (2 * d * (a + e) + 3 * p * a + 2 * p * e + 3 * p + 2 * e)
+    by_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
+    by_ops = flops / PEAK_FLOPS["bfloat16"]
+    return {"bytes_once": in_bytes + out_bytes, "flops": flops,
+            "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def first_difference_gaps(same, gaps) -> float:
+    """The largest, over rows that differ, of the smallest gap at or after
+    the row's first differing position (0.0 when no row differs)."""
+    import torch
+    worst = 0.0
+    for r in torch.nonzero(~same.all(1)).flatten().tolist():
+        t = int(torch.nonzero(~same[r])[0])
+        worst = max(worst, float(gaps[r, t:].min()))
+    return worst
+
+
+def compare_k2(fb, decoder, seq, dtype, label: str) -> dict:
+    """K2 against its plain version on one encoder sequence batch."""
+    import torch
+    enc = seq.to(dtype).contiguous()
+    enc_proj = decoder.project_encoding(enc).contiguous()
+    h0, c0 = (t.contiguous() for t in decoder.init_state(enc))
+    w = decoder.weights(dtype)
+    preds, score, lens = fb.fused_beam_decode_packed(
+        enc, enc_proj, h0, c0, w, MAX_LENGTH, BEAM)
+    r_preds, r_score, r_lens, gaps = fb.fused_beam_decode_plain(
+        enc, enc_proj, h0, c0, w, MAX_LENGTH, BEAM, return_gaps=True)
+    torch.cuda.synchronize()
+    same = preds == r_preds                          # (B, K, T)
+    decoded = (preds != 0) | (r_preds != 0)
+    image_same = same.flatten(1).all(1) & (lens == r_lens).all(1)
+    rec = {"case": label, "dtype": str(dtype).split(".")[-1],
+           "B": int(enc.shape[0]), "K": BEAM,
+           "agree": float(same[decoded].double().mean()),
+           "images_identical": int(image_same.sum())}
+    if dtype == torch.float32:
+        img_same = (same.all(1)) & (lens == r_lens).all(1)[:, None]
+        rec["max_gap_at_first_difference"] = first_difference_gaps(
+            img_same, gaps)
+        rel = ((score - r_score).abs() / r_score.abs().clamp(min=1e-30))
+        rec["score_max_rel_err"] = float(rel[image_same].max()) if bool(
+            image_same.any()) else 0.0
+        rec["ok"] = (rec["max_gap_at_first_difference"] < F32_GAP
+                     and rec["score_max_rel_err"] <= SCORE_RTOL)
+    else:
+        rec["ok"] = rec["agree"] >= BF16_AGREE
+    rec["ms"] = cuda_ms(lambda: fb.fused_beam_decode_packed(
+        enc, enc_proj, h0, c0, w, MAX_LENGTH, BEAM), reps=3)
+    rec["plain_ms"] = cuda_ms(lambda: fb.fused_beam_decode_plain(
+        enc, enc_proj, h0, c0, w, MAX_LENGTH, BEAM), reps=1)
+    rec.update(k2_cost(enc, enc_proj, w, lens, BEAM))
+    return rec
+
+
+def compare_beam_of_one(fb, fd, decoder, seq, label: str) -> dict:
+    """K2 at K = 1 against K1, float32: K1's bar (identical, or the plain
+    K1's top-2 logit gap at the first differing step below F32_GAP)."""
+    import torch
+    enc = seq.float().contiguous()
+    enc_proj = decoder.project_encoding(enc).contiguous()
+    h0, c0 = (t.contiguous() for t in decoder.init_state(enc))
+    w = decoder.weights(torch.float32)
+    beam = fb.fused_beam_decode_packed(enc, enc_proj, h0, c0, w, MAX_LENGTH,
+                                       1)[0][:, 0]
+    greedy = fd.fused_greedy_decode_packed(enc, enc_proj, h0, c0, w,
+                                           MAX_LENGTH)
+    _, gaps = fd.fused_greedy_decode_plain(enc, enc_proj, h0, c0, w,
+                                           MAX_LENGTH, return_gaps=True)
+    same = beam == greedy
+    worst = first_difference_gaps(same, gaps)
+    return {"case": f"K=1 vs K1, {label}", "B": int(enc.shape[0]),
+            "rows_identical": int(same.all(1).sum()),
+            "max_gap_at_first_difference": worst, "ok": worst < F32_GAP}
+
+
+def compare_k3(da, decoder, seq, label: str) -> dict:
+    """K3 against its plain version (bfloat16 streams) on one step's
+    inputs: the decoder's initial h over this encoder sequence."""
+    import torch
+    from stroke_derenderer_tpu_torch.models.decoder import ATTENTION_WEIGHTS
+    enc = seq.to(torch.bfloat16).contiguous()
+    enc_proj = decoder.project_encoding(enc).contiguous()
+    h = decoder.init_state(enc)[0].contiguous()
+    att_w = [getattr(decoder, k) for k in ATTENTION_WEIGHTS]
+    got = da.fused_attention_gate(enc, enc_proj, h, *att_w)
+    ref = da.fused_attention_gate_plain(enc, enc_proj, h, *att_w,
+                                        stream_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    ok = all(bool(((g - r).abs() <= K3_ATOL + K3_RTOL * r.abs()).all())
+             for g, r in zip(got, ref))
+    rec = {"case": label, "B": int(enc.shape[0]), "P": int(enc.shape[1]),
+           "max_abs_err": err, "ok": ok,
+           "alpha_sum_err": float((ref[1].sum(1) - 1).abs().max())}
+    rec["ms"] = cuda_ms(lambda: da.fused_attention_gate(
+        enc, enc_proj, h, *att_w), reps=20)
+    rec["plain_ms"] = cuda_ms(lambda: da.fused_attention_gate_plain(
+        enc, enc_proj, h, *att_w, stream_dtype=torch.bfloat16), reps=20)
+    rec.update(k3_cost(enc, enc_proj, h, [t.to(torch.bfloat16)
+                                          for t in att_w]))
+    return rec
+
+
+def compare_fused_greedy(da, decoder, seq, dtype) -> dict:
+    """greedy_decode(fused=True) with K3 against the same entry with the
+    attention from K3's plain version (bfloat16 streams), K1's bars. The
+    launches are counted from 0 over the K3 run alone."""
+    import torch
+    from stroke_derenderer_tpu_torch.models.decoder import greedy_decode
+    enc = seq.to(dtype).contiguous()
+    kernel = da.fused_attention_gate
+    da.launch_count = 0
+    t0 = time.monotonic()
+    got = greedy_decode(decoder, enc, MAX_LENGTH, fused=True)
+    torch.cuda.synchronize()
+    entry_s = time.monotonic() - t0
+    launches = da.launch_count
+    da.fused_attention_gate = lambda *a: da.fused_attention_gate_plain(
+        *a, stream_dtype=torch.bfloat16)
+    try:
+        t0 = time.monotonic()
+        ref, gaps = greedy_decode(decoder, enc, MAX_LENGTH, fused=True,
+                                  return_gaps=True)
+        torch.cuda.synchronize()
+        plain_s = time.monotonic() - t0
+    finally:
+        da.fused_attention_gate = kernel
+    same = got == ref
+    steps = int(decode_lengths(got).max())
+    rec = {"case": "golden, greedy_decode(fused=True)",
+           "dtype": str(dtype).split(".")[-1], "B": int(enc.shape[0]),
+           "agree": float(same.float().mean()),
+           "rows_identical": int(same.all(1).sum()), "steps": steps,
+           "k3_launches": launches, "entry_s": entry_s,
+           "plain_entry_s": plain_s}
+    if dtype == torch.float32:
+        rec["max_gap_at_first_difference"] = first_difference_gaps(same, gaps)
+        rec["ok"] = rec["max_gap_at_first_difference"] < F32_GAP
+    else:
+        rec["ok"] = rec["agree"] >= BF16_AGREE
+    rec["ok"] = rec["ok"] and launches == steps
+    return rec
+
+
+def drive_cli(cli, read_png, imgs, binarizer, estimator, counters) -> dict:
+    """``cli.run`` on the images with every module's ``launch_count`` in
+    ``counters`` set to 0 just before and read just after; the checks of
+    phases 4 and 7."""
+    import numpy as np
+    import torch
+    with tempfile.TemporaryDirectory() as out:
+        for mod in counters.values():
+            mod.launch_count = 0
+        captured = io.StringIO()
+        t_run = time.monotonic()
+        with contextlib.redirect_stdout(captured):
+            done = cli.run(imgs, binarizer, estimator, out)
+        torch.cuda.synchronize()
+        t_run = time.monotonic() - t_run
+        launches = {name: mod.launch_count for name, mod in counters.items()}
+        text = captured.getvalue()
+        if done != len(imgs):
+            print(text)
+            raise SystemExit(f"cli.run processed {done} of {len(imgs)} images")
+        with_glyphs = 0
+        for _, name in imgs:
+            for suffix in ("_BINARIZED.png", "_STROKES.json"):
+                if not (Path(out) / f"{name}{suffix}").exists():
+                    raise SystemExit(f"missing output {name}{suffix}")
+            with_glyphs += bool(read_png(
+                Path(out) / f"{name}_BINARIZED.png").any())
+        got = read_png(Path(out) / "golden_input_BINARIZED.png")
+        want = read_png(GOLDEN / "expected_BINARIZED.png")
+        if got.shape != want.shape:
+            raise SystemExit(f"golden mask shape {got.shape} != {want.shape}")
+        mask_agree = float((got == want).mean())
+        strokes = json.loads((Path(out) / "golden_input_STROKES.json")
+                             .read_text())
+        expected = json.loads((GOLDEN / "expected_STROKES.json").read_text())
+    t_bin = [float(x) for x in re.findall(r"took ([0-9.]+) seconds to "
+                                           r"binarize", text)]
+    t_se = [float(x) for x in re.findall(r"took ([0-9.]+) seconds to "
+                                          r"estimate", text)]
+    rec = {
+        "images": len(imgs), "images_with_glyphs": with_glyphs,
+        "launches": launches, "golden_mask_agree": mask_agree,
+        "golden_mask_differing_px": int((got != want).sum()),
+        "golden_strokes_chamfer_px": chamfer(strokes, expected),
+        "run_s": t_run, "binarize_s_per_image": float(np.mean(t_bin)),
+        "strokes_s_per_image": float(np.mean(t_se)),
+        "binarize_s_first": t_bin[0], "strokes_s_first": t_se[0]}
+    print(json.dumps(rec), flush=True)
+    if mask_agree < MASK_AGREE:
+        raise SystemExit(f"golden mask agreement {mask_agree} < {MASK_AGREE}")
+    return rec
+
+
 def chamfer(a, b) -> float:
     import numpy as np
     pa = np.concatenate([np.stack([x, y], -1) for x, y in a]) if a else None
@@ -198,6 +474,8 @@ def main(argv=None) -> int:
     from stroke_derenderer_tpu_torch.device import resolve_device
     from stroke_derenderer_tpu_torch.io import load_image, read_png
     from stroke_derenderer_tpu_torch.kernels import build
+    from stroke_derenderer_tpu_torch.kernels import decode_attention as da
+    from stroke_derenderer_tpu_torch.kernels import fused_beam as fb
     from stroke_derenderer_tpu_torch.kernels import fused_decode as fd
     from stroke_derenderer_tpu_torch.models.encoder import encode_postprocess
     from stroke_derenderer_tpu_torch.ops.device_partition import (
@@ -218,22 +496,26 @@ def main(argv=None) -> int:
 
     # 2. build -------------------------------------------------------------
     t0 = time.monotonic()
-    build.load_library("fused_decode", force=True)
-    log = build.BUILD_LOG["fused_decode"]
-    record["build"] = log
-    print(log["ptxas"])
-    _phase("build", t0, f"K1 built in {log['seconds']:.2f} s with "
-           f"{build.find_nvcc()}")
+    with ThreadPoolExecutor(len(LIBS)) as pool:
+        list(pool.map(lambda name: build.load_library(name, force=True),
+                      LIBS))
+    record["build"] = {name: build.BUILD_LOG[name] for name in LIBS}
+    for name in LIBS:
+        print(build.BUILD_LOG[name]["ptxas"])
+    _phase("build", t0, ", ".join(
+        f"{name} {build.BUILD_LOG[name]['seconds']:.2f} s" for name in LIBS)
+        + f" with {build.find_nvcc()}")
 
     # 3. K1 against its plain version ---------------------------------------
     t0 = time.monotonic()
     binarizer, estimator = cli.initialize_sessions(MODELS, device=dev)
     decoder = estimator.decoder
     checks = []
+    seqs = {}
     with torch.inference_mode():
         rng = np.random.default_rng(0)
         cases = []
-        for b in K1_BATCHES:
+        for b in sorted(set(K1_BATCHES) | set(K3_BATCHES) | {K2_BATCH}):
             crops = torch.from_numpy(synthetic_crops(rng, b)).to(dev).float()
             cases.append((f"synthetic B={b}", crops))
         mask = binarizer.binarize_image(
@@ -245,11 +527,12 @@ def main(argv=None) -> int:
         cases.append(("golden", gather_crops(
             torch.from_numpy(plan.gid_img).to(dev), coords)))
         for label, crops in cases:
-            seq = encode_postprocess(
+            seqs[label] = encode_postprocess(
                 estimator.encoder(estimator._normalize_raw(crops)),
                 estimator.config.encode_image_size)
+        for label in [f"synthetic B={b}" for b in K1_BATCHES] + ["golden"]:
             for dtype in (torch.float32, torch.bfloat16):
-                rec = compare_k1(fd, decoder, seq, dtype, label)
+                rec = compare_k1(fd, decoder, seqs[label], dtype, label)
                 checks.append(rec)
                 print(json.dumps({k: rec[k] for k in (
                     "case", "dtype", "B", "agree", "rows_identical", "ok",
@@ -272,70 +555,115 @@ def main(argv=None) -> int:
     imgs = cli.load_images(inputs)
     if len(imgs) != len(inputs):
         raise SystemExit(f"loaded {len(imgs)} of {len(inputs)} inputs")
-    with tempfile.TemporaryDirectory() as out:
-        fd.launch_count = 0
-        captured = io.StringIO()
-        t_run = time.monotonic()
-        with contextlib.redirect_stdout(captured):
-            done = cli.run(imgs, binarizer, estimator, out)
-        torch.cuda.synchronize()
-        t_run = time.monotonic() - t_run
-        launches = fd.launch_count
-        text = captured.getvalue()
-        if done != len(imgs):
-            print(text)
-            raise SystemExit(f"cli.run processed {done} of {len(imgs)} images")
-        with_glyphs = 0
-        for _, name in imgs:
-            for suffix in ("_BINARIZED.png", "_STROKES.json"):
-                if not (Path(out) / f"{name}{suffix}").exists():
-                    raise SystemExit(f"missing output {name}{suffix}")
-            with_glyphs += bool(read_png(
-                Path(out) / f"{name}_BINARIZED.png").any())
-        got = read_png(Path(out) / "golden_input_BINARIZED.png")
-        want = read_png(GOLDEN / "expected_BINARIZED.png")
-        if got.shape != want.shape:
-            raise SystemExit(f"golden mask shape {got.shape} != {want.shape}")
-        mask_agree = float((got == want).mean())
-        strokes = json.loads((Path(out) / "golden_input_STROKES.json")
-                             .read_text())
-        expected = json.loads((GOLDEN / "expected_STROKES.json").read_text())
-    t_bin = [float(x) for x in re.findall(r"took ([0-9.]+) seconds to "
-                                           r"binarize", text)]
-    t_se = [float(x) for x in re.findall(r"took ([0-9.]+) seconds to "
-                                          r"estimate", text)]
-    record["main"] = {
-        "images": len(imgs), "images_with_glyphs": with_glyphs,
-        "k1_launches": launches, "golden_mask_agree": mask_agree,
-        "golden_mask_differing_px": int((got != want).sum()),
-        "golden_strokes_chamfer_px": chamfer(strokes, expected),
-        "run_s": t_run, "binarize_s_per_image": float(np.mean(t_bin)),
-        "strokes_s_per_image": float(np.mean(t_se)),
-        "binarize_s_first": t_bin[0], "strokes_s_first": t_se[0]}
-    print(json.dumps(record["main"]), flush=True)
-    if mask_agree < MASK_AGREE:
-        raise SystemExit(f"golden mask agreement {mask_agree} < {MASK_AGREE}")
-    if launches == 0 or launches != with_glyphs:
+    counters = {"K1": fd, "K2": fb, "K3": da}
+    main_rec = drive_cli(cli, read_png, imgs, binarizer, estimator, counters)
+    record["main"] = main_rec
+    launches = main_rec["launches"]["K1"]
+    if launches == 0 or launches != main_rec["images_with_glyphs"]:
         raise SystemExit(f"K1 launched {launches} times on the main path; "
-                         f"{with_glyphs} images have glyphs")
+                         f"{main_rec['images_with_glyphs']} images have "
+                         f"glyphs")
     _phase("main", t0, f"{len(imgs)} images, {launches} K1 launches, golden "
-           f"mask agreement {mask_agree:.6f}")
+           f"mask agreement {main_rec['golden_mask_agree']:.6f}")
+
+    # 5. K2 against its plain version ---------------------------------------
+    t0 = time.monotonic()
+    k2_checks = []
+    with torch.inference_mode():
+        for label in ("golden", f"synthetic B={K2_BATCH}"):
+            for dtype in (torch.float32, torch.bfloat16):
+                rec = compare_k2(fb, decoder, seqs[label], dtype, label)
+                k2_checks.append(rec)
+                print(json.dumps({k: rec[k] for k in (
+                    "case", "dtype", "B", "K", "agree", "images_identical",
+                    "ok", "ms", "plain_ms", "bound_ms", "stream_bound_ms",
+                    "steps_max", "max_gap_at_first_difference",
+                    "score_max_rel_err") if k in rec}), flush=True)
+            rec = compare_beam_of_one(fb, fd, decoder, seqs[label], label)
+            k2_checks.append(rec)
+            print(json.dumps(rec), flush=True)
+    record["k2"] = k2_checks
+    bad = [c for c in k2_checks if not c["ok"]]
+    if bad:
+        raise SystemExit(f"K2 disagrees with its plain version or K1: {bad}")
+    _phase("k2", t0, f"{len(k2_checks)} comparisons passed (f32 gap < "
+           f"{F32_GAP}, score rtol {SCORE_RTOL}, bf16 agreement >= "
+           f"{BF16_AGREE})")
+
+    # 6. K3 against its plain version, and the fused-attention entry -------
+    t0 = time.monotonic()
+    k3_checks = []
+    with torch.inference_mode():
+        for label in [f"synthetic B={b}" for b in K3_BATCHES] + ["golden"]:
+            rec = compare_k3(da, decoder, seqs[label], label)
+            k3_checks.append(rec)
+            print(json.dumps(rec), flush=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            rec = compare_fused_greedy(da, decoder, seqs["golden"], dtype)
+            k3_checks.append(rec)
+            print(json.dumps(rec), flush=True)
+    record["k3"] = k3_checks
+    bad = [c for c in k3_checks if not c["ok"]]
+    if bad:
+        raise SystemExit(f"K3 disagrees with its plain version: {bad}")
+    _phase("k3", t0, f"{len(k3_checks)} comparisons passed (atol {K3_ATOL} "
+           f"+ rtol {K3_RTOL}; entry: K1's bars, one launch per step)")
+
+    # 7. main path with --decode beam ---------------------------------------
+    t0 = time.monotonic()
+    _, beam_estimator = cli.initialize_sessions(
+        MODELS, device=dev, se_overrides={"decode": "beam",
+                                          "beam_size": BEAM,
+                                          "max_length": MAX_LENGTH})
+    beam_rec = drive_cli(cli, read_png, imgs, binarizer, beam_estimator,
+                         counters)
+    record["main_beam"] = beam_rec
+    beam_launches = beam_rec["launches"]["K2"]
+    if (beam_launches == 0
+            or beam_launches != beam_rec["images_with_glyphs"]
+            or beam_rec["launches"]["K1"] != 0):
+        raise SystemExit(f"launches on the beam path: "
+                         f"{beam_rec['launches']}; "
+                         f"{beam_rec['images_with_glyphs']} images have "
+                         f"glyphs")
+    _phase("main-beam", t0, f"{len(imgs)} images, {beam_launches} K2 "
+           f"launches, golden beam strokes chamfer "
+           f"{beam_rec['golden_strokes_chamfer_px']:.3f} px")
 
     # kernel table and result ---------------------------------------------
-    main_rec = next(c for c in checks
-                    if c["case"] == "golden" and c["dtype"] == "bfloat16")
-    kernels = [{
-        "name": "K1 fused greedy decode", "route": "cuda",
-        "source": "stroke_derenderer_tpu_torch/csrc/fused_decode.cu",
-        "replaces": "stroke_derenderer_tpu/kernels/fused_decode.py:251",
-        "launches": launches,
-        # Tokens are integers: the share of float32 token positions that
-        # differ from the plain version, over all the float32 cases.
-        "max_abs_err": max(1.0 - c["agree"] for c in checks
-                           if c["dtype"] == "float32"),
-        "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
-        "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-        "library_ms": None}]
+    def pick(recs, case, dtype=None):
+        return next(c for c in recs if c["case"] == case
+                    and (dtype is None or c.get("dtype") == dtype))
+
+    def row(name, src, replaces, launches_, rec, err):
+        return {"name": name, "route": "cuda",
+                "source": f"stroke_derenderer_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": launches_,
+                "max_abs_err": err, "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": None}
+
+    fused_entry = pick(k3_checks, "golden, greedy_decode(fused=True)",
+                       "bfloat16")
+    # Tokens are integers: for K1 and K2 max_abs_err is the largest share of
+    # float32 token positions that differ from the plain version.
+    kernels = [
+        row("K1 fused greedy decode", "fused_decode.cu",
+            "stroke_derenderer_tpu/kernels/fused_decode.py:251", launches,
+            pick(checks, "golden", "bfloat16"),
+            max(1.0 - c["agree"] for c in checks
+                if c["dtype"] == "float32")),
+        row("K2 fused beam decode", "fused_beam.cu",
+            "stroke_derenderer_tpu/kernels/fused_beam.py:218", beam_launches,
+            pick(k2_checks, "golden", "bfloat16"),
+            max(1.0 - c["agree"] for c in k2_checks
+                if c.get("dtype") == "float32")),
+        row("K3 fused attention + gate", "decode_attention.cu",
+            "stroke_derenderer_tpu/kernels/decode_attention.py:109",
+            fused_entry["k3_launches"], pick(k3_checks, "golden"),
+            max(c["max_abs_err"] for c in k3_checks
+                if "max_abs_err" in c)),
+    ]
     if args.out:
         record["kernels"] = kernels
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

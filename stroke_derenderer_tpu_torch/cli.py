@@ -1,7 +1,8 @@
 """Command line: the main path of the JAX ``cli.py``.
 
     python -m stroke_derenderer_tpu_torch.cli -models models_demo \
-        -input DIR --output DIR [--device cuda|cpu]
+        -input DIR --output DIR [--device cuda|cpu] \
+        [--decode greedy|beam] [--beam-size K]
 
 For every PNG in the input folder: binarize, save ``<name>_BINARIZED.png``,
 estimate strokes, save ``<name>_STROKES.json`` rescaled to the input's
@@ -13,6 +14,7 @@ through. Runs on the card unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from pathlib import Path
 
@@ -37,13 +39,21 @@ def parse_args(argv=None):
                         help="Output folder.")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu.")
+    parser.add_argument("--decode", choices=["greedy", "beam"], default=None,
+                        help="Decoding strategy (default: model config / "
+                             "greedy; the reference is greedy-only).")
+    parser.add_argument("--beam-size", type=int, default=None,
+                        help="Beam width for --decode beam.")
     return parser.parse_args(argv)
 
 
-def initialize_sessions(folderpath, device=None):
+def initialize_sessions(folderpath, device=None,
+                        se_overrides: dict | None = None):
     """Both pipelines from a model directory: the flax msgpack weights
     ``binarizer``, ``strokes_encoder`` and ``strokes_decoder``, and the
-    config JSONs, whose entries override the defaults."""
+    config JSONs, whose entries override the defaults. ``se_overrides``
+    are ``StrokesConfig`` fields that win over the config JSON (the
+    ``--decode`` and ``--beam-size`` flags)."""
     folder = Path(folderpath)
 
     def _opt(name):
@@ -52,8 +62,11 @@ def initialize_sessions(folderpath, device=None):
     binarizer = Binarizer(
         BinarizerConfig.from_json(_opt("configs_binarizer.json")),
         folder / "binarizer.msgpack", device=device)
+    se_cfg = StrokesConfig.from_json(_opt("configs_strokes.json"))
+    if se_overrides:
+        se_cfg = dataclasses.replace(se_cfg, **se_overrides)
     estimator = StrokeEstimator(
-        StrokesConfig.from_json(_opt("configs_strokes.json")),
+        se_cfg,
         {"encoder": folder / "strokes_encoder.msgpack",
          "decoder": folder / "strokes_decoder.msgpack"}, device=device)
     return binarizer, estimator
@@ -107,7 +120,13 @@ def load_images(img_filepaths):
 def entrypoint(argv=None) -> int:
     args = parse_args(argv)
     imgs = load_images(sorted(Path(args.input).glob("*.png")))
-    binarizer, estimator = initialize_sessions(args.models, device=args.device)
+    se_overrides = {}
+    if args.decode:
+        se_overrides["decode"] = args.decode
+    if args.beam_size:
+        se_overrides["beam_size"] = args.beam_size
+    binarizer, estimator = initialize_sessions(
+        args.models, device=args.device, se_overrides=se_overrides)
     run(imgs, binarizer, estimator, args.output)
     return 0
 

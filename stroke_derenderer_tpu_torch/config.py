@@ -69,7 +69,9 @@ class StrokesConfig:
     attention_dim: int = 512
     decoder_dim: int = 512
     projection_dim: int = 0
-    decode: str = "greedy"
+    decode: str = "greedy"  # "greedy" | "beam"
+    beam_size: int = 5
+    length_penalty: float = 0.0  # GNMT length normalization (beam only)
     redecode_coverage: float = 0.0
     refine_snap: float = 0.0
     compute_dtype: str = "bfloat16"

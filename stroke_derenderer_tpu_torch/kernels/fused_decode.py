@@ -21,9 +21,9 @@ import ctypes
 
 import torch
 
-from stroke_derenderer_tpu_torch.config import BOS, EOS, PAD
+from stroke_derenderer_tpu_torch.config import PAD
 from stroke_derenderer_tpu_torch.models.decoder import (
-    F32_WEIGHTS, STEP_WEIGHTS, decode_step,
+    F32_WEIGHTS, STEP_WEIGHTS, decode_step, greedy_loop,
 )
 
 # Launches of the CUDA kernel since import (or since a caller reset it).
@@ -41,33 +41,13 @@ def fused_greedy_decode_plain(enc, enc_proj, h0, c0, w: dict,
     ``w`` from ``AttentiveDecoder.weights``. Returns (B, max_length) int32
     tokens; with ``return_gaps`` also the (B, max_length) float32 gap
     between the two largest logits at each step (inf where not decoded)."""
-    b = enc.shape[0]
-    dev = enc.device
     # decode_step sums in float64: convert the matrices and the encoder
     # sequence once rather than at every step.
     w = {k: (t.double() if k in _MATRICES else t) for k, t in w.items()}
     enc = enc.double()
-    preds = torch.full((b, max_length), PAD, dtype=torch.int32, device=dev)
-    gaps = torch.full((b, max_length), float("inf"), device=dev)
-    emb = w["emb"][torch.full((b,), BOS, dtype=torch.long, device=dev)]
-    h, c = h0, c0
-    active = torch.ones(b, dtype=torch.bool, device=dev)
-    for t in range(max_length):
-        if not bool(active.any()):
-            break
-        logits, h2, c2 = decode_step(w, enc, enc_proj, emb, h, c)
-        tok = logits.argmax(dim=-1)
-        if return_gaps:
-            top2 = logits.topk(2, dim=-1).values
-            gaps[:, t] = torch.where(active, top2[:, 0] - top2[:, 1],
-                                     float("inf"))
-        preds[:, t] = torch.where(active, tok, PAD).to(torch.int32)
-        keep = active[:, None]
-        h = torch.where(keep, h2, h)
-        c = torch.where(keep, c2, c)
-        emb = torch.where(keep, w["emb"][tok], emb)
-        active = active & (tok != EOS)
-    return (preds, gaps) if return_gaps else preds
+    return greedy_loop(
+        lambda emb, h, c: decode_step(w, enc, enc_proj, emb, h, c),
+        w["emb"], h0, c0, max_length, return_gaps)
 
 
 def _library():

@@ -28,10 +28,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from stroke_derenderer_tpu_torch.config import BOS, EOS, PAD
+
 # Weights the kernel and the step read; the vocabulary head stays float32.
 STEP_WEIGHTS = ("watt", "batt", "v", "bv", "wf", "bf", "wx", "wh", "blstm",
                 "emb", "wfc", "bfc")
 F32_WEIGHTS = ("wfc", "bfc")
+# The attention half's weights, in the argument order of
+# ``kernels.decode_attention.fused_attention_gate``.
+ATTENTION_WEIGHTS = ("watt", "batt", "v", "bv", "wf", "bf")
 
 
 def dense(x, w, b=None):
@@ -41,17 +46,22 @@ def dense(x, w, b=None):
     return y if b is None else y + b
 
 
-def decode_step(w: dict, enc, enc_proj, emb, h, c):
-    """One decode step on the weights of :meth:`AttentiveDecoder.weights`.
-    enc, enc_proj: (B, P, E|A); emb, h, c: (B, D|H) in the compute dtype.
-    Returns (logits float32 (B, V), h, c)."""
-    hdim = h.shape[-1]
+def attend(w: dict, enc, enc_proj, h):
+    """The attention half of a step: the gated attended vector
+    ``sigmoid(h Wf + bf) * sum_p alpha_p enc_p`` (B, E) in h's dtype."""
     att = torch.relu(enc_proj + dense(h, w["watt"], w["batt"])[:, None, :])
     alpha = torch.softmax(dense(att, w["v"], w["bv"]).double(), dim=1)
     awe = torch.bmm(alpha[:, None, :], enc.double())[:, 0]
     gate = torch.sigmoid(dense(h, w["wf"], w["bf"]))
-    awe = (gate.double() * awe).to(h.dtype)
-    x = torch.cat([emb, awe], dim=-1)
+    return (gate.double() * awe).to(h.dtype)
+
+
+def step_with_awe(w: dict, emb, awe, h, c):
+    """The LSTM and the vocabulary head once the attended vector is known
+    (counterpart of the JAX ``AttentiveDecoder.step_with_awe``). ``awe`` is
+    rounded to h's dtype first. Returns (logits float32 (B, V), h, c)."""
+    hdim = h.shape[-1]
+    x = torch.cat([emb, awe.to(h.dtype)], dim=-1)
     gates = dense(x, w["wx"]) + dense(h, w["wh"], w["blstm"])
     i = torch.sigmoid(gates[:, :hdim])
     f = torch.sigmoid(gates[:, hdim:2 * hdim])
@@ -60,6 +70,13 @@ def decode_step(w: dict, enc, enc_proj, emb, h, c):
     c = f * c + i * g
     h = o * torch.tanh(c)
     return dense(h.float(), w["wfc"], w["bfc"]), h, c
+
+
+def decode_step(w: dict, enc, enc_proj, emb, h, c):
+    """One decode step on the weights of :meth:`AttentiveDecoder.weights`.
+    enc, enc_proj: (B, P, E|A); emb, h, c: (B, D|H) in the compute dtype.
+    Returns (logits float32 (B, V), h, c)."""
+    return step_with_awe(w, emb, attend(w, enc, enc_proj, h), h, c)
 
 
 class AttentiveDecoder(nn.Module):
@@ -113,17 +130,81 @@ class AttentiveDecoder(nn.Module):
                            emb, h, c)
 
 
-def greedy_decode(decoder: AttentiveDecoder, enc_seq, max_length: int):
+def greedy_loop(step, emb_table, h, c, max_length: int,
+                return_gaps: bool = False):
+    """The greedy loop around ``step(emb, h, c) -> (logits, h, c)``: start
+    from BOS; every active row writes its argmax, the EOS that ends it
+    included, and PAD after that; retired rows freeze h, c and emb; the loop
+    stops once every row has retired. Returns (B, max_length) int32 tokens;
+    with ``return_gaps`` also the (B, max_length) float32 gap between the two
+    largest logits at each step (inf where not decoded)."""
+    b = h.shape[0]
+    dev = h.device
+    preds = torch.full((b, max_length), PAD, dtype=torch.int32, device=dev)
+    gaps = torch.full((b, max_length), float("inf"), device=dev)
+    emb = emb_table[torch.full((b,), BOS, dtype=torch.long, device=dev)]
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    for t in range(max_length):
+        if not bool(active.any()):
+            break
+        logits, h2, c2 = step(emb, h, c)
+        tok = logits.argmax(dim=-1)
+        if return_gaps:
+            top2 = logits.topk(2, dim=-1).values
+            gaps[:, t] = torch.where(active, top2[:, 0] - top2[:, 1],
+                                     float("inf"))
+        preds[:, t] = torch.where(active, tok, PAD).to(torch.int32)
+        keep = active[:, None]
+        h = torch.where(keep, h2, h)
+        c = torch.where(keep, c2, c)
+        emb = torch.where(keep, emb_table[tok], emb)
+        active = active & (tok != EOS)
+    return (preds, gaps) if return_gaps else preds
+
+
+def greedy_decode(decoder: AttentiveDecoder, enc_seq, max_length: int,
+                  fused: bool = False, return_gaps: bool = False):
     """(B, P, E) encoder sequence -> (B, max_length) int32 tokens, stepping
-    in Python. Start from BOS; every active row writes its argmax, the EOS
-    that ends it included, and PAD after that; retired rows freeze h, c and
-    emb; the loop stops once every row has retired."""
-    from stroke_derenderer_tpu_torch.kernels.fused_decode import (
-        fused_greedy_decode_plain,
+    in Python (:func:`greedy_loop`).
+
+    ``fused=True`` takes the attention and gate of each step from
+    ``kernels.decode_attention.fused_attention_gate`` (the CUDA kernel K3 on
+    the card, its plain version on the CPU), given the float32 parameters
+    as the JAX entry gives them, and the LSTM and head from
+    :func:`step_with_awe`."""
+    enc_proj = decoder.project_encoding(enc_seq)
+    h, c = decoder.init_state(enc_seq)
+    w = decoder.weights(enc_seq.dtype)
+    if not fused:
+        from stroke_derenderer_tpu_torch.kernels.fused_decode import (
+            fused_greedy_decode_plain,
+        )
+        return fused_greedy_decode_plain(enc_seq, enc_proj, h, c, w,
+                                         max_length, return_gaps)
+    from stroke_derenderer_tpu_torch.kernels import decode_attention
+    att_w = [getattr(decoder, k) for k in ATTENTION_WEIGHTS]
+
+    def step(emb, h, c):
+        awe, _ = decode_attention.fused_attention_gate(enc_seq, enc_proj, h,
+                                                       *att_w)
+        return step_with_awe(w, emb, awe, h, c)
+
+    return greedy_loop(step, w["emb"], h, c, max_length, return_gaps)
+
+
+def beam_decode(decoder: AttentiveDecoder, enc_seq, max_length: int,
+                beam_size: int = 5, length_penalty: float = 0.0):
+    """(B, P, E) encoder sequence -> (B, max_length) int32 tokens of the
+    best of ``beam_size`` beams, stepping in Python (counterpart of the JAX
+    ``beam_decode``). Only beam 0 is live at the start; finished beams
+    extend only with PAD at a frozen score; ``length_penalty`` > 0 ranks the
+    final beams by score / ((5 + len) / 6) ** length_penalty."""
+    from stroke_derenderer_tpu_torch.kernels.fused_beam import (
+        fused_beam_decode_plain, select_beam,
     )
     enc_proj = decoder.project_encoding(enc_seq)
     h, c = decoder.init_state(enc_seq)
-    return fused_greedy_decode_plain(enc_seq, enc_proj, h, c,
-                                     decoder.weights(enc_seq.dtype),
-                                     max_length)
-
+    preds, score, lens = fused_beam_decode_plain(
+        enc_seq, enc_proj, h, c, decoder.weights(enc_seq.dtype), max_length,
+        beam_size)
+    return select_beam(preds, score, lens, length_penalty)

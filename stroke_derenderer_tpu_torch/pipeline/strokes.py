@@ -1,5 +1,6 @@
 """Stroke estimation on the device-partition path: mask -> glyph groups ->
-crops on the device -> ResNet encoder -> fused greedy decode -> strokes.
+crops on the device -> ResNet encoder -> fused greedy (K1) or beam (K2)
+decode -> strokes.
 
 Counterpart of ``StrokeEstimator.process_image`` of the JAX
 ``pipeline/strokes.py`` with ``device_partition`` on and no re-decode or
@@ -15,6 +16,7 @@ import torch
 
 from stroke_derenderer_tpu_torch.config import StrokesConfig
 from stroke_derenderer_tpu_torch.device import dtype_of, resolve_device
+from stroke_derenderer_tpu_torch.kernels.fused_beam import fused_beam_decode
 from stroke_derenderer_tpu_torch.kernels.fused_decode import (
     fused_greedy_decode,
 )
@@ -39,8 +41,10 @@ class StrokeEstimator:
         """``weights_paths``: {"encoder": path, "decoder": path} to the
         networks' flax msgpack files."""
         self.config = cfg = config
+        if cfg.decode not in ("greedy", "beam"):
+            raise ValueError(f"decode must be 'greedy' or 'beam', got "
+                             f"{cfg.decode!r}")
         unsupported = [name for name, bad in (
-            ("decode", cfg.decode != "greedy"),
             ("projection_dim", cfg.projection_dim != 0),
             ("encoder_norm", cfg.encoder_norm != "group"),
             ("redecode_coverage", cfg.redecode_coverage > 0),
@@ -87,8 +91,13 @@ class StrokeEstimator:
             getattr(plan, k))).to(dev) for k in PartitionPlan.COORD_KEYS)
         images = self._normalize_raw(gather_crops(gid, coords))
         seq = encode_postprocess(self.encoder(images), cfg.encode_image_size)
-        tokens = fused_greedy_decode(self.decoder, seq.to(self.compute_dtype),
-                                     max_length or cfg.max_length)
+        seq = seq.to(self.compute_dtype)
+        max_length = max_length or cfg.max_length
+        if cfg.decode == "beam":
+            tokens = fused_beam_decode(self.decoder, seq, max_length,
+                                       cfg.beam_size, cfg.length_penalty)
+        else:
+            tokens = fused_greedy_decode(self.decoder, seq, max_length)
         return tokens.cpu().numpy()
 
     def process_tokens(self, tokens: np.ndarray, partitions: list[dict]):

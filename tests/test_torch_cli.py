@@ -82,10 +82,20 @@ import stroke_derenderer_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+for name in ("kernels.fused_beam", "kernels.decode_attention"):
+    assert pkg.__name__ + "." + name in names, name
 import chip_smoke
-from stroke_derenderer_tpu_torch.cli import entrypoint
+import torch
+from stroke_derenderer_tpu_torch.cli import entrypoint, initialize_sessions
+from stroke_derenderer_tpu_torch.models.decoder import greedy_decode
 assert entrypoint(["-models", models, "-input", inp, "--output", out,
                    "--device", "cpu"]) == 0
+assert entrypoint(["-models", models, "-input", inp, "--output", out,
+                   "--device", "cpu", "--decode", "beam",
+                   "--beam-size", "3"]) == 0
+dec = initialize_sessions(models, device="cpu")[1].decoder
+assert greedy_decode(dec, torch.zeros(2, 196, dec.enc_att_w.shape[0]), 4,
+                     fused=True).shape == (2, 4)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("GUARD OK", len(names))
@@ -93,8 +103,9 @@ print("GUARD OK", len(names))
 
 
 def test_import_guard(tmp_path):
-    """Every port module and chip_smoke.py import, and the CLI runs a tiny
-    model on the CPU, with the JAX stack, PIL and msgpack unimportable."""
+    """Every port module and chip_smoke.py import, and the CLI (greedy and
+    --decode beam) and the fused-attention greedy entry run a tiny model on
+    the CPU, with the JAX stack, PIL and msgpack unimportable."""
     from stroke_derenderer_tpu.config import BinarizerConfig, StrokesConfig
     from stroke_derenderer_tpu.weights.store import materialize_model_dir
     models, inp = tmp_path / "models", tmp_path / "in"

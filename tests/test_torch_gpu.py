@@ -86,3 +86,113 @@ def test_cli_main_path_on_card(tmp_path):
     got = read_png(tmp_path / "golden_input_BINARIZED.png")
     want = read_png(REPO / "tests" / "golden" / "expected_BINARIZED.png")
     assert (got == want).mean() >= 0.999
+
+
+def _enc(b, dt, dev, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.maximum(rng.normal(1.0, 1.5, (b, 196, 512)),
+                                       0).astype(np.float32)).to(dev, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 3])
+def test_beam_kernel_matches_plain_version(dtype, b):
+    """K2 at K = 5 against its plain version on the shipped decoder: every
+    beam's tokens and length identical (both sum in float64 and round once),
+    scores within 1e-5 relative, in one launch."""
+    dev = _card()
+    from stroke_derenderer_tpu_torch.kernels import fused_beam as fb
+    dt = getattr(torch, dtype)
+    dec = _shipped_decoder(dt, dev)
+    enc = _enc(b, dt, dev, 10 + b)
+    ep, (h, c) = dec.project_encoding(enc), dec.init_state(enc)
+    w = dec.weights(dt)
+    before = fb.launch_count
+    preds, score, lens = fb.fused_beam_decode_packed(enc, ep, h, c, w, 384, 5)
+    assert fb.launch_count == before + 1
+    want = fb.fused_beam_decode_plain(enc, ep, h, c, w, 384, 5)
+    assert preds.shape == (b, 5, 384) and preds.dtype == torch.int32
+    assert torch.equal(preds.cpu(), want[0].cpu())
+    assert torch.equal(lens.cpu(), want[2].cpu())
+    torch.testing.assert_close(score, want[1], rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_beam_kernel_takes_every_beam_size_up_to_its_limit():
+    """K = 1 gives K1's tokens; K = 16 runs; K = 17 raises a ValueError that
+    names the limit, and never reaches the plain version."""
+    dev = _card()
+    from stroke_derenderer_tpu_torch.kernels import fused_beam as fb
+    dec = _shipped_decoder(torch.float32, dev)
+    enc = _enc(2, torch.float32, dev, 7)
+    ep, (h, c) = dec.project_encoding(enc), dec.init_state(enc)
+    w = dec.weights(torch.float32)
+    one = fb.fused_beam_decode_packed(enc, ep, h, c, w, 64, 1)[0][:, 0]
+    assert torch.equal(one, fd.fused_greedy_decode_packed(enc, ep, h, c, w,
+                                                          64))
+    preds, score, _ = fb.fused_beam_decode_packed(enc, ep, h, c, w, 16, 16)
+    assert preds.shape == (2, 16, 16)
+    assert bool((score[:, :-1] >= score[:, 1:]).all())  # best first
+    with pytest.raises(ValueError, match="1 to 16"):
+        fb.fused_beam_decode_packed(enc, ep, h, c, w, 16, 17)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 5])
+def test_attention_kernel_matches_plain_version(b):
+    """K3 against its plain version with bfloat16 streams: out and alpha
+    within 1e-5 + 1e-4 relative (both sum in float32, in other orders)."""
+    dev = _card()
+    from stroke_derenderer_tpu_torch.kernels import decode_attention as da
+    from stroke_derenderer_tpu_torch.models.decoder import ATTENTION_WEIGHTS
+    dec = _shipped_decoder(torch.bfloat16, dev)
+    enc = _enc(b, torch.bfloat16, dev, 20 + b)
+    ep, (h, _) = dec.project_encoding(enc), dec.init_state(enc)
+    att_w = [getattr(dec, k) for k in ATTENTION_WEIGHTS]
+    before = da.launch_count
+    out, alpha = da.fused_attention_gate(enc, ep, h, *att_w)
+    assert da.launch_count == before + 1
+    want = da.fused_attention_gate_plain(enc, ep, h, *att_w,
+                                         stream_dtype=torch.bfloat16)
+    torch.testing.assert_close(out, want[0], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(alpha, want[1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_fused_attention_greedy_launches_once_per_step():
+    dev = _card()
+    from stroke_derenderer_tpu_torch.kernels import decode_attention as da
+    from stroke_derenderer_tpu_torch.models.decoder import greedy_decode
+    dec = _shipped_decoder(torch.bfloat16, dev)
+    enc = _enc(3, torch.bfloat16, dev, 30)
+    before = da.launch_count
+    preds = greedy_decode(dec, enc, 40, fused=True)
+    is_eos = (preds == 2).cpu()
+    steps = int(max(int(r.nonzero()[0]) + 1 if r.any() else 40
+                    for r in is_eos))
+    assert da.launch_count - before == steps
+
+
+@pytest.mark.gpu
+def test_cli_beam_path_on_card(tmp_path):
+    """--decode beam on the card: K2 launches once per image with glyphs,
+    K1 not at all; the golden mask agrees."""
+    _card()
+    from stroke_derenderer_tpu_torch.cli import entrypoint
+    from stroke_derenderer_tpu_torch.io import read_png
+    from stroke_derenderer_tpu_torch.kernels import fused_beam as fb
+    before, before_k1 = fb.launch_count, fd.launch_count
+    assert entrypoint(["-models", str(REPO / "models_demo"), "-input",
+                       str(REPO / "tests" / "golden"), "--output",
+                       str(tmp_path), "--decode", "beam", "--beam-size",
+                       "5"]) == 0
+    with_glyphs = sum(bool(read_png(p).any())
+                      for p in tmp_path.glob("*_BINARIZED.png"))
+    assert with_glyphs >= 1
+    assert fb.launch_count - before == with_glyphs
+    assert fd.launch_count == before_k1
+    assert (tmp_path / "golden_input_STROKES.json").exists()
+    got = read_png(tmp_path / "golden_input_BINARIZED.png")
+    want = read_png(REPO / "tests" / "golden" / "expected_BINARIZED.png")
+    assert (got == want).mean() >= 0.999

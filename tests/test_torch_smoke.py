@@ -1,7 +1,8 @@
 """``chip_smoke.py`` rehearsed on the CPU: the card is faked (availability,
-name, events, ``nvidia-smi``), the device is the CPU, and K1's wrapper
-runs its plain version and counts a launch. This checks the script's
-phases and its output contract, not the kernel."""
+name, events, ``nvidia-smi``), the device is the CPU, and the wrappers of
+K1, K2 and K3 run their plain versions (K3's with bfloat16 streams, as on
+the card) and count a launch. This checks the script's phases and its
+output contract, not the kernels."""
 
 import json
 import sys
@@ -33,6 +34,8 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
         sys.path.remove(str(REPO))
     from stroke_derenderer_tpu_torch import device
     from stroke_derenderer_tpu_torch.kernels import build
+    from stroke_derenderer_tpu_torch.kernels import decode_attention as da
+    from stroke_derenderer_tpu_torch.kernels import fused_beam as fb
     from stroke_derenderer_tpu_torch.kernels import fused_decode as fd
     from stroke_derenderer_tpu_torch.pipeline import binarize, strokes
 
@@ -58,11 +61,26 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
         return fd.fused_greedy_decode_plain(*args)
 
     monkeypatch.setattr(fd, "fused_greedy_decode_packed", counted_plain)
+
+    def counted_beam(*args):
+        fb.launch_count += 1
+        return fb.fused_beam_decode_plain(*args)
+
+    monkeypatch.setattr(fb, "fused_beam_decode_packed", counted_beam)
+
+    def counted_attention(*args):
+        da.launch_count += 1
+        return da.fused_attention_gate_plain(*args,
+                                             stream_dtype=torch.bfloat16)
+
+    monkeypatch.setattr(da, "fused_attention_gate", counted_attention)
     monkeypatch.setattr(
         chip_smoke.subprocess, "run",
         lambda cmd, **k: types.SimpleNamespace(stdout="fake card, 700.00 W\n"))
     monkeypatch.setattr(chip_smoke, "MAX_LENGTH", 6)
     monkeypatch.setattr(chip_smoke, "K1_BATCHES", (1, 3))
+    monkeypatch.setattr(chip_smoke, "K2_BATCH", 3)
+    monkeypatch.setattr(chip_smoke, "K3_BATCHES", (1, 3))
 
     assert chip_smoke.main(["--out", str(tmp_path / "smoke.json")]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
@@ -71,10 +89,22 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
     kernels = json.loads(lines[-2])["kernels"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    assert [set(k) for k in kernels] == [keys]
-    assert kernels[0]["launches"] == 45  # one per input image with glyphs
-    assert (REPO / kernels[0]["source"]).exists()
+    assert [set(k) for k in kernels] == [keys] * 3
+    assert [k["name"][:2] for k in kernels] == ["K1", "K2", "K3"]
+    # K1 and K2: one launch per input image with glyphs on their paths;
+    # K3: one per decoded step of the fused-attention entry.
+    assert [k["launches"] for k in kernels[:2]] == [45, 45]
+    assert 0 < kernels[2]["launches"] <= chip_smoke.MAX_LENGTH
+    for k in kernels:
+        assert (REPO / k["source"]).exists()
+        path, line = k["replaces"].split(":")
+        assert "pallas_call" in (REPO / path).read_text().splitlines()[
+            int(line) - 1]
     assert "fake card, 700.00 W" in lines
     record = json.loads((tmp_path / "smoke.json").read_text())
-    assert record["main"]["golden_mask_agree"] >= chip_smoke.MASK_AGREE
-    assert all(c["ok"] for c in record["k1"])
+    assert set(record["build"]) == set(chip_smoke.LIBS)
+    for phase in ("main", "main_beam"):
+        assert record[phase]["golden_mask_agree"] >= chip_smoke.MASK_AGREE
+    assert record["main_beam"]["launches"]["K1"] == 0
+    for phase in ("k1", "k2", "k3"):
+        assert record[phase] and all(c["ok"] for c in record[phase])
