@@ -12,7 +12,7 @@ non-zero and prints no result:
 2. build: the three kernels, K1 (``csrc/fused_decode.cu``), K2
    (``csrc/fused_beam.cu``) and K3 (``csrc/decode_attention.cu``), one
    ``nvcc`` call each, all started together, each with its ``-Xptxas -v``
-   summary and its build seconds.
+   summary (registers and spills of each kernel) and its build seconds.
 3. k1: K1 against its plain PyTorch version on the card, with the shipped
    decoder weights (``models_demo``), on encoder sequences of glyph crops
    drawn from a numpy seed at B = 1, 13 and 80, and on the golden image's
@@ -33,7 +33,9 @@ non-zero and prints no result:
    after the first differing position, below ``F32_GAP``; scores of
    identical images within ``SCORE_RTOL``. bfloat16: at least
    ``BF16_AGREE`` of the decoded token positions agree. And K2 at K = 1
-   gives K1's float32 tokens (K1's bar). Timed with CUDA events.
+   gives K1's float32 tokens (K1's bar), and K2 at K = ``BIG_BEAM`` (above
+   the old kernel's limit of 16) meets the same bars on the golden glyphs.
+   Timed with CUDA events.
 6. k3: K3 against its plain version with bfloat16 streams at B = 1, 13 and
    80 (synthetic) and on the golden glyphs, P = 196, the shipped attention
    weights: ``out`` and ``alpha`` within ``K3_ATOL`` + ``K3_RTOL`` * |plain|.
@@ -46,7 +48,10 @@ non-zero and prints no result:
    beam strokes' chamfer distance to ``tests/golden/expected_STROKES.json``
    is recorded, not held to a bound.
 
-Then one JSON line with the kernel table (K1, K2, K3) and, last, one JSON
+K1 and K2 are one cooperative launch each per decode call; phases 3 and 5
+record each launch's grid, its grid barriers per step and the time of one
+grid-wide step, and one line per kernel prints them with the registers and
+spills. Then one JSON line with the kernel table (K1, K2, K3) and, last, one JSON
 line ``{"ok": true, "device": {...}}``. ``--out`` also writes everything to
 a JSON file.
 """
@@ -57,7 +62,6 @@ import argparse
 import contextlib
 import io
 import json
-import math
 import re
 import subprocess
 import sys
@@ -77,6 +81,7 @@ MASK_AGREE = 0.999  # share of golden mask pixels that must agree
 MAX_LENGTH = 384
 K1_BATCHES = (1, 13, 80)  # synthetic-glyph batch sizes for phase 3
 BEAM = 5            # the beam size of phases 5 and 7
+BIG_BEAM = 17       # a beam size above 16 (the old kernel's limit), phase 5
 K2_BATCH = 13       # synthetic-glyph batch size for phase 5
 SCORE_RTOL = 1e-5   # float32 beam scores, K2 against its plain version
 K3_BATCHES = (1, 13, 80)  # synthetic-glyph batch sizes for phase 6
@@ -122,7 +127,7 @@ def decode_lengths(preds):
     return first.long()
 
 
-def k1_cost(enc, enc_proj, w: dict, lengths, rows_per_block: int) -> dict:
+def k1_cost(enc, enc_proj, w: dict, lengths) -> dict:
     """Bytes, operations and bounds of one fused decode on these inputs."""
     b, p, e = enc.shape
     a = enc_proj.shape[-1]
@@ -138,18 +143,43 @@ def k1_cost(enc, enc_proj, w: dict, lengths, rows_per_block: int) -> dict:
     dtype = "bfloat16" if enc.element_size() == 2 else "float32"
     bound_s = max((wbytes + io_bytes) / HBM_BYTES_PER_S,
                   flops / PEAK_FLOPS[dtype])
-    # Weights re-read every step by every block, encoder rows every step.
-    block_steps = sum(int(lengths[i:i + rows_per_block].max())
-                      for i in range(0, b, rows_per_block))
+    # The grid streams the weights once per step (each block its slice) and
+    # every active row's encoder data once per step.
     row_bytes = p * (e + a) * enc.element_size()
-    stream_s = (block_steps * wbytes
+    stream_s = (int(lengths.max()) * wbytes
                 + int(lengths.sum()) * row_bytes) / HBM_BYTES_PER_S
     return {"bytes_once": wbytes + io_bytes, "flops": flops,
             "bound_ms": bound_s * 1e3, "bound_by": (
                 "bytes" if (wbytes + io_bytes) / HBM_BYTES_PER_S
                 >= flops / PEAK_FLOPS[dtype] else "operations"),
-            "stream_bound_ms": stream_s * 1e3, "block_steps": block_steps,
+            "stream_bound_ms": stream_s * 1e3,
             "steps_max": int(lengths.max()), "steps_sum": int(lengths.sum())}
+
+
+def ptxas_summary(text: str) -> list[dict]:
+    """Registers and spills of each kernel (entry function) in an ``nvcc
+    -Xptxas -v`` report."""
+    out, props = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            out[m.group(1)] = {"function": m.group(1)}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props in out:
+            out[props].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out:
+            last = list(out.values())[-1]
+            last.setdefault("registers", int(m.group(1)))
+    return list(out.values())
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -173,7 +203,9 @@ def compare_k1(fd, decoder, seq, dtype, label: str) -> dict:
     enc_proj = decoder.project_encoding(enc).contiguous()
     h0, c0 = (t.contiguous() for t in decoder.init_state(enc))
     w = decoder.weights(dtype)
-    got = fd.fused_greedy_decode_packed(enc, enc_proj, h0, c0, w, MAX_LENGTH)
+    packed = fd.pack_step_weights(w)
+    got = fd.fused_greedy_decode_packed(enc, enc_proj, h0, c0, w, MAX_LENGTH,
+                                        packed)
     ref, gaps = fd.fused_greedy_decode_plain(enc, enc_proj, h0, c0, w,
                                              MAX_LENGTH, return_gaps=True)
     torch.cuda.synchronize()
@@ -191,12 +223,27 @@ def compare_k1(fd, decoder, seq, dtype, label: str) -> dict:
     else:
         rec["ok"] = rec["agree"] >= BF16_AGREE
     rec["ms"] = cuda_ms(lambda: fd.fused_greedy_decode_packed(
-        enc, enc_proj, h0, c0, w, MAX_LENGTH), reps=5)
+        enc, enc_proj, h0, c0, w, MAX_LENGTH, packed), reps=5)
     rec["plain_ms"] = cuda_ms(lambda: fd.fused_greedy_decode_plain(
         enc, enc_proj, h0, c0, w, MAX_LENGTH), reps=1)
-    rec.update(k1_cost(enc, enc_proj, w, decode_lengths(got),
-                       fd.rows_per_block()))
+    rec.update(k1_cost(enc, enc_proj, w, decode_lengths(got)))
+    rec.update(launch_shape(fd, "fused_decode", enc, enc_proj, w, 1,
+                            rec["ms"], rec["steps_max"]))
     return rec
+
+
+def launch_shape(mod, name, enc, enc_proj, w, k, ms, steps) -> dict:
+    """Grid of the cooperative launch, barriers per step and the time of one
+    grid-wide step (the call's time over the steps it took)."""
+    b, p, e = enc.shape
+    hdim = w["wh"].shape[0]
+    v, d = w["emb"].shape
+    dims = {"B": b, "P": p, "E": e, "A": enc_proj.shape[-1], "H": hdim,
+            "D": d, "V": v, "K": k, "max_length": MAX_LENGTH}
+    from stroke_derenderer_tpu_torch.kernels import fused_decode
+    grid, _ = fused_decode.launch_grid(name, enc.dtype, dims, enc.device)
+    return {"grid": grid, "barriers_per_step": mod.BARRIERS_PER_STEP,
+            "step_ms": ms / max(steps, 1)}
 
 
 def weight_bytes(w: dict) -> int:
@@ -223,12 +270,10 @@ def k2_cost(enc, enc_proj, w: dict, lens, k: int) -> dict:
     dtype = "bfloat16" if enc.element_size() == 2 else "float32"
     by_bytes = (wbytes + io_bytes) / HBM_BYTES_PER_S
     by_ops = flops / PEAK_FLOPS[dtype]
-    # One block per image re-reads the weights and the image's encoder rows
-    # once per group of up to 8 beams at every step.
-    passes = math.ceil(k / 8)
-    stream_s = (int(steps.sum()) * passes
-                * (wbytes + p * (e + a) * enc.element_size())
-                ) / HBM_BYTES_PER_S
+    # The grid streams the weights once per step (each block its slice) and
+    # every searching beam's encoder data once per step.
+    stream_s = (int(steps.max()) * wbytes + int(steps.sum()) * k
+                * p * (e + a) * enc.element_size()) / HBM_BYTES_PER_S
     return {"bytes_once": wbytes + io_bytes, "flops": flops,
             "bound_ms": max(by_bytes, by_ops) * 1e3,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -264,23 +309,25 @@ def first_difference_gaps(same, gaps) -> float:
     return worst
 
 
-def compare_k2(fb, decoder, seq, dtype, label: str) -> dict:
-    """K2 against its plain version on one encoder sequence batch."""
+def compare_k2(fb, decoder, seq, dtype, label: str, k: int = BEAM) -> dict:
+    """K2 at beam size k against its plain version on one encoder sequence
+    batch."""
     import torch
     enc = seq.to(dtype).contiguous()
     enc_proj = decoder.project_encoding(enc).contiguous()
     h0, c0 = (t.contiguous() for t in decoder.init_state(enc))
     w = decoder.weights(dtype)
+    packed = fb.pack_step_weights(w)
     preds, score, lens = fb.fused_beam_decode_packed(
-        enc, enc_proj, h0, c0, w, MAX_LENGTH, BEAM)
+        enc, enc_proj, h0, c0, w, MAX_LENGTH, k, packed)
     r_preds, r_score, r_lens, gaps = fb.fused_beam_decode_plain(
-        enc, enc_proj, h0, c0, w, MAX_LENGTH, BEAM, return_gaps=True)
+        enc, enc_proj, h0, c0, w, MAX_LENGTH, k, return_gaps=True)
     torch.cuda.synchronize()
     same = preds == r_preds                          # (B, K, T)
     decoded = (preds != 0) | (r_preds != 0)
     image_same = same.flatten(1).all(1) & (lens == r_lens).all(1)
     rec = {"case": label, "dtype": str(dtype).split(".")[-1],
-           "B": int(enc.shape[0]), "K": BEAM,
+           "B": int(enc.shape[0]), "K": k,
            "agree": float(same[decoded].double().mean()),
            "images_identical": int(image_same.sum())}
     if dtype == torch.float32:
@@ -295,11 +342,58 @@ def compare_k2(fb, decoder, seq, dtype, label: str) -> dict:
     else:
         rec["ok"] = rec["agree"] >= BF16_AGREE
     rec["ms"] = cuda_ms(lambda: fb.fused_beam_decode_packed(
-        enc, enc_proj, h0, c0, w, MAX_LENGTH, BEAM), reps=3)
+        enc, enc_proj, h0, c0, w, MAX_LENGTH, k, packed), reps=3)
     rec["plain_ms"] = cuda_ms(lambda: fb.fused_beam_decode_plain(
-        enc, enc_proj, h0, c0, w, MAX_LENGTH, BEAM), reps=1)
-    rec.update(k2_cost(enc, enc_proj, w, lens, BEAM))
+        enc, enc_proj, h0, c0, w, MAX_LENGTH, k), reps=1)
+    rec.update(k2_cost(enc, enc_proj, w, lens, k))
+    rec.update(launch_shape(fb, "fused_beam", enc, enc_proj, w, k, rec["ms"],
+                            rec["steps_max"]))
     return rec
+
+
+PHASES = ("scores", "attend", "lstm", "head", "select")
+
+
+def step_breakdown(fd, name: str, decoder, seq, dtype, k: int) -> dict:
+    """Where one decode call's time goes: the kernel's phase clock (block 0
+    reads the global timer after every grid barrier), as microseconds per
+    step of each phase, its barrier included, averaged over the steps."""
+    import torch
+    enc = seq.to(dtype).contiguous()
+    enc_proj = decoder.project_encoding(enc).contiguous()
+    h0, c0 = (t.contiguous() for t in decoder.init_state(enc))
+    w = decoder.weights(dtype)
+    b, dev = enc.shape[0], enc.device
+    nph = 4 if k == 1 and name == "fused_decode" else 5
+    stamps = torch.zeros(3 + MAX_LENGTH * nph, dtype=torch.int64,
+                         device=dev)
+    outputs = {"preds": torch.zeros((b, k, MAX_LENGTH), dtype=torch.int32,
+                                    device=dev),
+               "score_out": torch.zeros((b, k), device=dev),
+               "lens_out": torch.zeros((b, k), dtype=torch.int32,
+                                       device=dev),
+               "stamps": stamps}
+    fd.launch_step_kernel(name, enc, enc_proj, h0, c0,
+                          fd.pack_step_weights(w), k, MAX_LENGTH, outputs)
+    torch.cuda.synchronize()
+    t = stamps.cpu().numpy().astype("float64")
+    steps = int((t[3:] > 0).sum()) // nph
+    per = (t[3:3 + steps * nph] - t[2:2 + steps * nph]).reshape(steps, nph)
+    return {"kernel": name, "dtype": str(dtype).split(".")[-1], "B": b,
+            "K": k, "steps": steps, "setup_us": (t[1] - t[0]) / 1e3,
+            "prologue_us": (t[2] - t[1]) / 1e3,
+            "step_us": float(per.sum(1).mean()) / 1e3,
+            "phase_us": {PHASES[i]: float(per[:, i].mean()) / 1e3
+                         for i in range(nph)}}
+
+
+def barrier_cost(fd, grid: int, dev) -> dict:
+    """One grid barrier of ``grid`` blocks when every block arrives at
+    once: a launch crossing 2000 barriers less one crossing none."""
+    many = cuda_ms(lambda: fd.barrier_probe(2000, grid, dev), reps=5)
+    none = cuda_ms(lambda: fd.barrier_probe(0, grid, dev), reps=5)
+    return {"grid": grid, "barrier_us": (many - none) / 2000 * 1e3,
+            "empty_launch_us": none * 1e3}
 
 
 def compare_beam_of_one(fb, fd, decoder, seq, label: str) -> dict:
@@ -455,6 +549,13 @@ def chamfer(a, b) -> float:
     return float(d.min(axis=1).mean() + d.min(axis=0).mean()) / 2
 
 
+def pick(recs, case, dtype=None):
+    """The record of a case (at K = BEAM for K2)."""
+    return next(c for c in recs if c["case"] == case
+                and (dtype is None or c.get("dtype") == dtype)
+                and c.get("K", BEAM) == BEAM)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None,
@@ -499,9 +600,12 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(len(LIBS)) as pool:
         list(pool.map(lambda name: build.load_library(name, force=True),
                       LIBS))
-    record["build"] = {name: build.BUILD_LOG[name] for name in LIBS}
+    record["build"] = {name: dict(build.BUILD_LOG[name], kernels=ptxas_summary(
+        build.BUILD_LOG[name]["ptxas"])) for name in LIBS}
     for name in LIBS:
         print(build.BUILD_LOG[name]["ptxas"])
+        for k in record["build"][name]["kernels"]:
+            print(json.dumps({"lib": name} | k))
     _phase("build", t0, ", ".join(
         f"{name} {build.BUILD_LOG[name]['seconds']:.2f} s" for name in LIBS)
         + f" with {build.find_nvcc()}")
@@ -537,7 +641,8 @@ def main(argv=None) -> int:
                 print(json.dumps({k: rec[k] for k in (
                     "case", "dtype", "B", "agree", "rows_identical", "ok",
                     "ms", "plain_ms", "bound_ms", "stream_bound_ms",
-                    "steps_max") if k in rec}
+                    "steps_max", "grid", "barriers_per_step", "step_ms")
+                    if k in rec}
                     | ({"max_gap": rec["max_gap_at_first_difference"]}
                        if "max_gap_at_first_difference" in rec else {})),
                     flush=True)
@@ -545,6 +650,13 @@ def main(argv=None) -> int:
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise SystemExit(f"K1 disagrees with its plain version: {bad}")
+    with torch.inference_mode():
+        golden = pick(checks, "golden", "bfloat16")
+        record["barrier"] = barrier_cost(fd, golden["grid"], dev)
+        record["k1_breakdown"] = step_breakdown(
+            fd, "fused_decode", decoder, seqs["golden"], torch.bfloat16, 1)
+    print(json.dumps(record["barrier"]), flush=True)
+    print(json.dumps(record["k1_breakdown"]), flush=True)
     _phase("k1", t0, f"{len(checks)} comparisons passed (f32 gap < "
            f"{F32_GAP}, bf16 agreement >= {BF16_AGREE})")
 
@@ -578,14 +690,29 @@ def main(argv=None) -> int:
                     "case", "dtype", "B", "K", "agree", "images_identical",
                     "ok", "ms", "plain_ms", "bound_ms", "stream_bound_ms",
                     "steps_max", "max_gap_at_first_difference",
-                    "score_max_rel_err") if k in rec}), flush=True)
+                    "score_max_rel_err", "grid", "barriers_per_step",
+                    "step_ms") if k in rec}), flush=True)
             rec = compare_beam_of_one(fb, fd, decoder, seqs[label], label)
             k2_checks.append(rec)
             print(json.dumps(rec), flush=True)
+        # A beam above the old kernel's limit of 16, on the golden glyphs.
+        for dtype in (torch.float32, torch.bfloat16):
+            rec = compare_k2(fb, decoder, seqs["golden"], dtype, "golden",
+                             BIG_BEAM)
+            k2_checks.append(rec)
+            print(json.dumps({k: rec[k] for k in (
+                "case", "dtype", "B", "K", "agree", "images_identical", "ok",
+                "ms", "plain_ms", "max_gap_at_first_difference",
+                "score_max_rel_err", "grid", "step_ms") if k in rec}),
+                flush=True)
     record["k2"] = k2_checks
     bad = [c for c in k2_checks if not c["ok"]]
     if bad:
         raise SystemExit(f"K2 disagrees with its plain version or K1: {bad}")
+    with torch.inference_mode():
+        record["k2_breakdown"] = step_breakdown(
+            fd, "fused_beam", decoder, seqs["golden"], torch.bfloat16, BEAM)
+    print(json.dumps(record["k2_breakdown"]), flush=True)
     _phase("k2", t0, f"{len(k2_checks)} comparisons passed (f32 gap < "
            f"{F32_GAP}, score rtol {SCORE_RTOL}, bf16 agreement >= "
            f"{BF16_AGREE})")
@@ -631,10 +758,6 @@ def main(argv=None) -> int:
            f"{beam_rec['golden_strokes_chamfer_px']:.3f} px")
 
     # kernel table and result ---------------------------------------------
-    def pick(recs, case, dtype=None):
-        return next(c for c in recs if c["case"] == case
-                    and (dtype is None or c.get("dtype") == dtype))
-
     def row(name, src, replaces, launches_, rec, err):
         return {"name": name, "route": "cuda",
                 "source": f"stroke_derenderer_tpu_torch/csrc/{src}",
@@ -643,6 +766,14 @@ def main(argv=None) -> int:
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": None}
 
+    for name, rec in (("K1", pick(checks, "golden", "bfloat16")),
+                      ("K2", pick(k2_checks, "golden", "bfloat16"))):
+        lib = "fused_decode" if name == "K1" else "fused_beam"
+        print(json.dumps({"launch": name, "grid": rec["grid"],
+                          "threads": 512,
+                          "barriers_per_step": rec["barriers_per_step"],
+                          "step_ms": rec["step_ms"],
+                          "ptxas": record["build"][lib]["kernels"]}))
     fused_entry = pick(k3_checks, "golden, greedy_decode(fused=True)",
                        "bfloat16")
     # Tokens are integers: for K1 and K2 max_abs_err is the largest share of

@@ -6,376 +6,144 @@
 // attended vector times sigmoid(h Wf + bf), an LSTM step on [emb; awe]
 // (Wx (D+E, 4H), Wh (H, 4H), bias), the float32 vocabulary head, argmax
 // (ties to the lowest index), the embedding of the chosen token, and masked
-// retirement: a row that emitted EOS writes PAD from then on and keeps its
-// h, c and emb.
+// retirement: a row that emitted EOS writes PAD from then on.
 //
-// What bounds it on an H100: at the shipped widths (E = A = H = D = 512,
-// V = 451) one step streams about 8 MB of weights (7 MB in bfloat16 plus
-// the 0.9 MB float32 head) and 0.4 MB of encoder data per row, for about
-// 8.2 MFLOP per row. A small batch does far too few operations per byte to
-// be bound by the tensor cores: the weights' trip from memory bounds it.
-// The TPU kernel kept every weight in one core's 16 MB of VMEM; an SM has
-// 227 KB of shared memory, so here the weights stay in global memory and are
-// re-read every step. At 8 MB they stay resident in the 50 MB L2 cache, so
-// the re-reads are served from L2, not HBM.
+// The step runs on the engine of decode_step.cuh, which says what bounds it
+// and how the work is spread over the card: one cooperative launch, every
+// block owning a slice of every matrix's columns, four grid barriers per
+// step. The loop is skewed by one phase so that the head of step t shares
+// phase A with the projections of step t + 1:
 //
-// Design (simple first; wgmma, TMA and spreading the weights over SMs are
-// later work):
-//   * one launch per decode call; each block owns ROWS rows and runs the
-//     whole step loop for them;
-//   * blocks never talk to each other: no grid sync, no cooperative launch,
-//     no spin-wait, no atomics. Rows are independent, so nothing can
-//     deadlock whatever the number of blocks;
-//   * the block's state (h, c, [emb; awe], the attention projection of h,
-//     the gate, scores and gate pre-activations) lives in dynamic shared
-//     memory, as float64 or float32 holding values of the stream type;
-//   * a matrix-vector product gives each thread one output column: the
-//     thread streams that column of the weight (neighbouring threads read
-//     neighbouring addresses) and keeps ROWS sums in registers, so every
-//     weight read serves all the block's rows;
-//   * a block stops as soon as all its rows have retired.
+//   prologue  A (dp, gate from h0) | sync
+//   step t    B scores | sync | C attend | sync | D LSTM | sync |
+//             A (logits of t; dp, gate for t + 1) | sync |
+//             argmax of t, in every block, on the same logits in the same
+//             order: each block retires the same rows, compacts the same
+//             list of active rows and decides alike whether to stop.
 //
-// Rounding matches the PyTorch step in models/decoder.py: with T =
-// bfloat16, a dense layer rounds its product to T and then adds its bias in
-// T; sigmoid and tanh take float32 in and round out; elementwise products
-// and sums round after each operation; the head is float32. Products, the
-// softmax and the attended sum are taken in float64 before their one
-// rounding, so that the rounded value does not depend on the order of
-// summation: this kernel and its plain version then agree bit for bit,
-// where one ulp of difference in a bfloat16 rounding would otherwise send
-// greedy trajectories apart within a few steps. The matrix-vector inputs
-// (h and [emb; awe]) are kept as float64 in shared memory for that reason.
+// A retired row's state is never read again, so it is not kept.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "decode_step.cuh"
 
 namespace {
 
-constexpr int ROWS = 4;       // decode rows per block
-constexpr int THREADS = 512;  // 16 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int EOS_TOK = 2;
-constexpr int BOS_TOK = 1;
-
-__device__ __forceinline__ float ldf(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldf(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
-
-// Round a float32 value to the stream type T (and hold it as float32).
-template <typename T> __device__ __forceinline__ float rnd(float x);
-template <> __device__ __forceinline__ float rnd<float>(float x) { return x; }
-template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <typename T> __device__ __forceinline__ float sig(float x) {
-  return rnd<T>(1.0f / (1.0f + expf(-x)));
-}
-template <typename T> __device__ __forceinline__ float tnh(float x) {
-  return rnd<T>(tanhf(x));
-}
-
-__device__ __forceinline__ double warp_sum(double v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ double warp_max(double v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmax(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// acc[r] = sum_k x[r * ldx + k] * w[k * ldw] in float64 for the block's ROWS
-// rows: the caller points w at its column. x is in shared memory, 16-byte
-// aligned, K a multiple of 4.
-template <typename W>
-__device__ __forceinline__ void matvec(const double* __restrict__ x, int ldx,
-                                       int K, const W* __restrict__ w,
-                                       int ldw, double (&acc)[ROWS]) {
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.0;
-#pragma unroll 2
-  for (int k = 0; k < K; k += 4) {
-    const double w0 = ldf(w + (size_t)k * ldw);
-    const double w1 = ldf(w + (size_t)(k + 1) * ldw);
-    const double w2 = ldf(w + (size_t)(k + 2) * ldw);
-    const double w3 = ldf(w + (size_t)(k + 3) * ldw);
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const double2 x01 = *reinterpret_cast<const double2*>(x + r * ldx + k);
-      const double2 x23 =
-          *reinterpret_cast<const double2*>(x + r * ldx + k + 2);
-      acc[r] = fma(x01.x, w0, acc[r]);
-      acc[r] = fma(x01.y, w1, acc[r]);
-      acc[r] = fma(x23.x, w2, acc[r]);
-      acc[r] = fma(x23.y, w3, acc[r]);
-    }
-  }
-}
-
-// A float64 sum rounded to T the way PyTorch's cast does it: to float32
-// first, then to T.
-template <typename T> __device__ __forceinline__ float rnd64(double x) {
-  return rnd<T>((float)x);
-}
+using namespace sd;
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS, 1) greedy_decode_kernel(
-    const T* __restrict__ enc, const T* __restrict__ proj,
-    const T* __restrict__ h0, const T* __restrict__ c0,
-    const T* __restrict__ watt, const T* __restrict__ batt,
-    const T* __restrict__ v, const T* __restrict__ bv,
-    const T* __restrict__ wf, const T* __restrict__ bf,
-    const T* __restrict__ wx, const T* __restrict__ wh,
-    const T* __restrict__ blstm, const T* __restrict__ emb,
-    const float* __restrict__ wfc, const float* __restrict__ bfc,
-    int* __restrict__ preds, int B, int P, int E, int A, int H, int D, int V,
-    int max_length) {
-  extern __shared__ double2 smem2[];
-  const int X = D + E;
-  const int G = 4 * H;
-  const int Pp = (P + 3) & ~3;
-  double* s_h = reinterpret_cast<double*>(smem2);  // ROWS x H
-  double* s_x = s_h + ROWS * H;     // ROWS x (D + E): [emb | awe]
-  double* s_sc = s_x + ROWS * X;    // ROWS x Pp: scores, then alpha
-  float* s_c = reinterpret_cast<float*>(s_sc + ROWS * Pp);  // ROWS x H
-  float* s_dp = s_c + ROWS * H;     // ROWS x A: h Watt + b
-  float* s_gate = s_dp + ROWS * A;  // ROWS x E: sigmoid(h Wf + bf)
-  float* s_g = s_gate + ROWS * E;   // ROWS x max(4H, V): gates, then logits
-  __shared__ int s_tok[ROWS];
-  __shared__ int s_act[ROWS];
-  __shared__ int s_any;
+__global__ void __launch_bounds__(THREADS, 1)
+    greedy_decode_kernel(Params<T> p) {
+  extern __shared__ double2 smem_raw[];
+  __shared__ int s_nact;
+  const Dims& d = p.d;
+  const Smem s = carve(smem_raw, d);
+  cg::grid_group grid = cg::this_grid();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // This block's copy of the active rows and of each row's next token.
+  int* act = p.rows + (size_t)blockIdx.x * 2 * d.R;
+  int* tok = act + d.R;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int row0 = blockIdx.x * ROWS;
-  const int nrows = min(ROWS, B - row0);
+  stamp(p, 0);
+  init_state(p);
+  for (int i = threadIdx.x; i < d.R; i += THREADS) tok[i] = BOS_TOK;
+  int nact = all_rows(act, d.R);
+  grid.sync();
+  stamp(p, 1);
+  phase_head(p, s, act, nact, 0, false);
+  grid.sync();
+  stamp(p, 2);
 
-  for (int i = tid; i < ROWS * H; i += THREADS) {
-    const int r = i / H;
-    const size_t src = (size_t)(row0 + r) * H + i % H;
-    s_h[i] = r < nrows ? ldf(h0 + src) : 0.0;
-    s_c[i] = r < nrows ? ldf(c0 + src) : 0.0f;
-  }
-  for (int i = tid; i < ROWS * X; i += THREADS) {
-    const int r = i / X, j = i % X;
-    s_x[i] = (r < nrows && j < D) ? ldf(emb + (size_t)BOS_TOK * D + j) : 0.0;
-  }
-  if (tid < ROWS) s_act[tid] = tid < nrows;
-  __syncthreads();
+  int hb = 0;
+  for (int t = 0;; ++t) {
+    const int st = 3 + t * 4;
+    phase_scores(p, act, nact);
+    grid.sync();
+    stamp(p, st);
+    phase_attend(p, s, act, nact);
+    grid.sync();
+    stamp(p, st + 1);
+    phase_lstm(p, s, act, nact, tok, hb);
+    grid.sync();
+    stamp(p, st + 2);
+    phase_head(p, s, act, nact, hb ^ 1, true);
+    grid.sync();
+    stamp(p, st + 3);
 
-  for (int t = 0; t < max_length; ++t) {
-    // 1. From h: the attention projection h Watt + b and the gate.
-    for (int col = tid; col < A + E; col += THREADS) {
-      double acc[ROWS];
-      if (col < A) {
-        matvec(s_h, H, H, watt + col, A, acc);
-        const float b = ldf(batt + col);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r)
-          s_dp[r * A + col] = rnd<T>(rnd64<T>(acc[r]) + b);
-      } else {
-        const int e = col - A;
-        matvec(s_h, H, H, wf + e, E, acc);
-        const float b = ldf(bf + e);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r)
-          s_gate[r * E + e] = sig<T>(rnd<T>(rnd64<T>(acc[r]) + b));
-      }
-    }
-    __syncthreads();
-
-    // 2. Scores v . relu(enc_proj + h Watt + b) + bv: a warp per position.
-    const float bvv = ldf(bv);
-    for (int pr = warp; pr < ROWS * P; pr += WARPS) {
-      const int r = pr / P, p = pr % P;
-      if (!s_act[r]) continue;
-      const T* pp = proj + ((size_t)(row0 + r) * P + p) * A;
-      const float* dp = s_dp + r * A;
-      double s = 0.0;
-      for (int a = lane; a < A; a += 32)
-        s = fma((double)fmaxf(rnd<T>(ldf(pp + a) + dp[a]), 0.0f),
-                (double)ldf(v + a), s);
-      s = warp_sum(s);
-      if (lane == 0) s_sc[r * Pp + p] = rnd<T>(rnd64<T>(s) + bvv);
-    }
-    __syncthreads();
-
-    // 3. Softmax over the positions, a warp per row, in float64.
-    if (warp < ROWS && s_act[warp]) {
-      double* sc = s_sc + warp * Pp;
-      double m = -INFINITY;
-      for (int p = lane; p < P; p += 32) m = fmax(m, sc[p]);
-      m = warp_max(m);
-      double sum = 0.0;
-      for (int p = lane; p < P; p += 32) {
-        const double ex = exp(sc[p] - m);
-        sc[p] = ex;
-        sum += ex;
-      }
-      sum = warp_sum(sum);
-      for (int p = lane; p < P; p += 32) sc[p] = sc[p] / sum;
-    }
-    __syncthreads();
-
-    // 4. Attended vector sum_p alpha enc in float64, times the gate,
-    //    rounded into the awe half of x.
-    for (int i = tid; i < ROWS * E; i += THREADS) {
-      const int r = i / E, e = i % E;
-      if (!s_act[r]) continue;
-      const T* ep = enc + (size_t)(row0 + r) * P * E + e;
-      const double* al = s_sc + r * Pp;
-      double acc = 0.0;
-      for (int p = 0; p < P; ++p)
-        acc = fma(al[p], (double)ldf(ep + (size_t)p * E), acc);
-      s_x[r * X + D + e] = rnd64<T>((double)s_gate[i] * acc);
-    }
-    __syncthreads();
-
-    // 5. LSTM pre-activations x Wx + (h Wh + b), gates i, f, g, o.
-    for (int n = tid; n < G; n += THREADS) {
-      double ax[ROWS], ah[ROWS];
-      matvec(s_x, X, X, wx + n, G, ax);
-      matvec(s_h, H, H, wh + n, G, ah);
-      const float b = ldf(blstm + n);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-        s_g[r * G + n] =
-            rnd<T>(rnd64<T>(ax[r]) + rnd<T>(rnd64<T>(ah[r]) + b));
-    }
-    __syncthreads();
-
-    // 6. Cell update; retired rows keep h and c.
-    for (int i = tid; i < ROWS * H; i += THREADS) {
-      const int r = i / H, j = i % H;
-      if (!s_act[r]) continue;
-      const float* g = s_g + r * G;
-      const float ig = sig<T>(g[j]);
-      const float fg = sig<T>(g[H + j]);
-      const float gg = tnh<T>(g[2 * H + j]);
-      const float og = sig<T>(g[3 * H + j]);
-      const float c = rnd<T>(rnd<T>(fg * s_c[i]) + rnd<T>(ig * gg));
-      s_c[i] = c;
-      s_h[i] = rnd<T>(og * tnh<T>(c));
-    }
-    __syncthreads();
-
-    // 7. Vocabulary head in float32 (the gates are spent; reuse s_g).
-    for (int n = tid; n < V; n += THREADS) {
-      double acc[ROWS];
-      matvec(s_h, H, H, wfc + n, V, acc);
-      const float b = ldf(bfc + n);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) s_g[r * V + n] = (float)acc[r] + b;
-    }
-    __syncthreads();
-
-    // 8. Argmax per row, ties to the lowest index; active rows write it.
-    if (warp < ROWS) {
-      const float* lg = s_g + warp * V;
-      float best = -INFINITY;
-      int bi = V;
-      for (int n = lane; n < V; n += 32) {
-        const float val = lg[n];
-        if (bi == V || val > best) {
-          best = val;
-          bi = n;
-        }
-      }
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-        if (oi != V && (bi == V || ob > best || (ob == best && oi < bi))) {
-          best = ob;
-          bi = oi;
-        }
-      }
+    // Argmax of every active row, ties to the lowest index; the row's
+    // owner (row % grid) writes it.
+    for (int i = warp; i < nact; i += WARPS) {
+      const int r = act[i];
+      const float* lg = p.logits + (size_t)r * d.V;
+      float best = 0.0f;
+      int bi = -1;
+      for (int n = lane; n < d.V; n += 32) arg_better(best, bi, lg[n], n);
+      warp_argmax(best, bi);
       if (lane == 0) {
-        s_tok[warp] = bi;
-        if (s_act[warp]) preds[(size_t)(row0 + warp) * max_length + t] = bi;
+        tok[r] = bi;
+        if (r % gridDim.x == blockIdx.x)
+          p.preds[(size_t)r * d.max_length + t] = bi;
       }
     }
     __syncthreads();
-
-    // 9. Embedding of the chosen token for the rows that were active, then
-    //    retire the rows that emitted EOS.
-    for (int i = tid; i < ROWS * D; i += THREADS) {
-      const int r = i / D;
-      if (s_act[r]) s_x[r * X + i % D] = ldf(emb + (size_t)s_tok[r] * D + i % D);
-    }
-    __syncthreads();
-    if (tid == 0) {
-      int any = 0;
-      for (int r = 0; r < ROWS; ++r) {
-        if (s_act[r] && s_tok[r] == EOS_TOK) s_act[r] = 0;
-        any |= s_act[r];
+    // Keep the rows that did not emit EOS, in order.
+    if (warp == 0) {
+      int kept = 0;
+      for (int i0 = 0; i0 < nact; i0 += 32) {
+        const int i = i0 + lane;
+        const int r = i < nact ? act[i] : -1;
+        const bool keep = r >= 0 && tok[r] != EOS_TOK;
+        const unsigned m = __ballot_sync(0xffffffffu, keep);
+        if (keep) act[kept + __popc(m & ((1u << lane) - 1u))] = r;
+        kept += __popc(m);
       }
-      s_any = any;
+      if (lane == 0) s_nact = kept;
     }
     __syncthreads();
-    if (!s_any) break;
+    nact = s_nact;
+    if (nact == 0 || t + 1 == d.max_length) break;  // the same in every block
+    hb ^= 1;
   }
-}
-
-template <typename T>
-int launch(const void* enc, const void* proj, const void* h0, const void* c0,
-           const void* watt, const void* batt, const void* v, const void* bv,
-           const void* wf, const void* bf, const void* wx, const void* wh,
-           const void* blstm, const void* emb, const void* wfc,
-           const void* bfc, int* preds, int B, int P, int E, int A, int H,
-           int D, int V, int max_length, cudaStream_t stream) {
-  const int Pp = (P + 3) & ~3;
-  const int GV = 4 * H > V ? 4 * H : V;
-  const size_t smem = ROWS * (sizeof(double) * (size_t)(H + D + E + Pp) +
-                              sizeof(float) * (size_t)(H + A + E + GV));
-  cudaError_t err = cudaFuncSetAttribute(
-      greedy_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + ROWS - 1) / ROWS);
-  greedy_decode_kernel<T><<<grid, THREADS, smem, stream>>>(
-      (const T*)enc, (const T*)proj, (const T*)h0, (const T*)c0,
-      (const T*)watt, (const T*)batt, (const T*)v, (const T*)bv,
-      (const T*)wf, (const T*)bf, (const T*)wx, (const T*)wh,
-      (const T*)blstm, (const T*)emb, (const float*)wfc, (const float*)bfc,
-      preds, B, P, E, A, H, D, V, max_length);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows per block, for the caller's bookkeeping.
-int sd_fused_decode_rows() { return ROWS; }
-
-// dtype: 0 = float32 stream, 1 = bfloat16 stream (wfc, bfc are float32 in
-// both). preds (B, max_length) int32 must hold PAD already. Returns the
-// CUDA error code of the launch (0 on success).
-int sd_fused_greedy_decode(int dtype, const void* enc, const void* proj,
-                           const void* h0, const void* c0, const void* watt,
-                           const void* batt, const void* v, const void* bv,
-                           const void* wf, const void* bf, const void* wx,
-                           const void* wh, const void* blstm, const void* emb,
-                           const void* wfc, const void* bfc, void* preds,
-                           int B, int P, int E, int A, int H, int D, int V,
-                           int max_length, void* stream) {
-  cudaGetLastError();  // report this launch's error, not an earlier one
-  auto s = static_cast<cudaStream_t>(stream);
-  auto out = static_cast<int*>(preds);
-  if (dtype == 0)
-    return launch<float>(enc, proj, h0, c0, watt, batt, v, bv, wf, bf, wx,
-                         wh, blstm, emb, wfc, bfc, out, B, P, E, A, H, D, V,
-                         max_length, s);
+// dtype: 0 = float32 stream, 1 = bfloat16 stream (the head is float32 in
+// both). `dims` in sd::Dim order with K = 1. Writes the largest grid the
+// card runs at once to *grid. Returns a CUDA error code (0 on success).
+int sd_fused_decode_grid(int dtype, const int* dims, int* grid) {
+  const Dims d = make_dims(dims);
+  if (dtype == 0) return grid_size(greedy_decode_kernel<float>, d, grid);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(enc, proj, h0, c0, watt, batt, v, bv, wf,
-                                 bf, wx, wh, blstm, emb, wfc, bfc, out, B, P,
-                                 E, A, H, D, V, max_length, s);
+    return grid_size(greedy_decode_kernel<__nv_bfloat16>, d, grid);
   return (int)cudaErrorInvalidValue;
+}
+
+// ptrs in sd::Ptr order (the beam entries may be null); preds (B,
+// max_length) int32 must hold PAD already. One cooperative launch of
+// `grid` blocks on `stream`. Returns the CUDA error code of the launch.
+int sd_fused_greedy_decode(int dtype, const void* const* ptrs,
+                           const int* dims, int grid, void* stream) {
+  cudaGetLastError();  // report this launch's error, not an earlier one
+  const Dims d = make_dims(dims);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dims[D_K] != 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch<float>(greedy_decode_kernel<float>, ptrs, d, grid, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(greedy_decode_kernel<__nv_bfloat16>, ptrs,
+                                 d, grid, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The barrier probe: one cooperative launch of `grid` blocks crossing `n`
+// grid barriers. Returns the CUDA error code of the launch.
+int sd_barrier_probe(int n, int grid, void* stream) {
+  cudaGetLastError();
+  void* args[] = {&n};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)barrier_probe_kernel, dim3(grid), dim3(THREADS), args, 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

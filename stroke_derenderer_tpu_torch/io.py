@@ -1,11 +1,14 @@
 """Host-side image and JSON I/O: a PNG reader and writer on ``zlib`` + numpy.
 
 Counterpart of the JAX package's ``io/images.py`` (which uses PIL) and
-``io/serial.py``. The reader takes 8-bit, non-interlaced PNGs of colour
-type 0 (L), 2 (RGB), 3 (palette) and 6 (RGBA), decodes all five row
-filters, and raises on anything else. ``load_image`` returns RGB the
-way PIL's ``convert("RGB")`` does: L is replicated, alpha is dropped, a
-palette is looked up. The writer writes L or RGB with filter 0.
+``io/serial.py``. The reader takes every PNG the standard defines: colour
+types 0 (grey, 1/2/4/8/16 bits), 2 (RGB, 8/16), 3 (palette, 1/2/4/8), 4
+(grey + alpha, 8/16) and 6 (RGBA, 8/16), plain or Adam7-interlaced, with
+all five row filters; it raises on a file that is not one. ``load_image``
+returns RGB exactly as PIL's ``convert("RGB")`` does: low-depth grey is
+scaled to 0..255, 16-bit grey is clipped at 255, other 16-bit samples keep
+their high byte, grey is replicated, alpha is dropped and a palette is
+looked up. The writer writes L or RGB with filter 0.
 """
 
 from __future__ import annotations
@@ -17,7 +20,12 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 3: 1, 6: 4}
+# colour type -> (samples per pixel, bit depths the PNG standard allows)
+_COLOUR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
+                 3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _paeth(a, b, c):
@@ -26,18 +34,19 @@ def _paeth(a, b, c):
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
-def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
-    """Undo the per-row PNG filters -> (h, w, bpp) uint8.
+def _unfilter(data: np.ndarray, h: int, row_bytes: int,
+              bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters -> (h, row_bytes) uint8. ``bpp`` is the
+    filters' byte distance to the left neighbour: the bytes per pixel,
+    rounded up to 1 for depths below 8.
 
-    Pixel (r, x) depends on (r, x-1), (r-1, x) and (r-1, x-1), so every
-    anti-diagonal r + x = d depends only on earlier ones: the rows are
-    decoded together, one anti-diagonal at a time, each row with its own
-    filter type. That keeps the Average and Paeth filters vectorized."""
-    data = np.frombuffer(raw, np.uint8)
-    if data.size != h * (w * bpp + 1):
-        raise ValueError(f"PNG data holds {data.size} bytes, expected "
-                         f"{h * (w * bpp + 1)}")
-    data = data.reshape(h, w * bpp + 1)
+    Byte (r, x) depends on (r, x-bpp), (r-1, x) and (r-1, x-bpp), so every
+    anti-diagonal r + x = d of the (h, row_bytes / bpp) pixel grid depends
+    only on earlier ones: the rows are decoded together, one anti-diagonal
+    at a time, each row with its own filter type. That keeps the Average
+    and Paeth filters vectorized."""
+    w = row_bytes // bpp
+    data = data.reshape(h, row_bytes + 1)
     ftype = data[:, 0].astype(np.int16)
     if ftype.max(initial=0) > 4:
         raise ValueError(f"unknown PNG filter type {int(ftype.max())}")
@@ -54,7 +63,7 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
                 row = row + prev
             out[r] = row & 255
             prev = out[r]
-        return out.astype(np.uint8)
+        return out.astype(np.uint8).reshape(h, row_bytes)
     # Zero-padded on the top and left: pixel (r, x) lives at [r + 1, x + 1].
     out = np.zeros((h + 1, w + 1, bpp), np.int16)
     for d in range(h + w - 1):
@@ -65,12 +74,39 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
         pred = np.select([ft == 1, ft == 2, ft == 3, ft == 4],
                          [a, b, (a + b) >> 1, _paeth(a, b, c)], 0)
         out[r + 1, x + 1] = (filt[r, x] + pred) & 255
-    return out[1:, 1:].astype(np.uint8)
+    return out[1:, 1:].astype(np.uint8).reshape(h, row_bytes)
+
+
+def _decode_image(data: np.ndarray, h: int, w: int, depth: int,
+                  channels: int) -> tuple[np.ndarray, int]:
+    """One (sub-)image's filtered rows at the start of ``data`` -> its
+    (h, w, channels) samples (uint16 for depth 16, else uint8) and the
+    bytes it used."""
+    bits = depth * channels
+    row_bytes = (w * bits + 7) // 8
+    n = h * (row_bytes + 1)
+    if data.size < n:
+        raise ValueError(f"PNG data ends after {data.size} bytes, expected "
+                         f"at least {n}")
+    rows = _unfilter(data[:n], h, row_bytes, max(1, bits // 8))
+    if depth == 16:
+        pix = rows.view(">u2").astype(np.uint16)
+    elif depth == 8:
+        pix = rows
+    else:  # 1, 2 or 4 bits: one sample per pixel, packed from the high bit
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        pix = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(
+            h, -1)[:, :w]
+    return pix.reshape(h, w, channels), n
 
 
 def read_png(path) -> np.ndarray:
-    """PNG file -> (H, W, C) uint8 in the file's own channels (C = 1 for L,
-    3 for RGB and palette, 4 for RGBA)."""
+    """PNG file -> (H, W, C) uint8, C = 1 (grey), 2 (grey + alpha), 3 (RGB
+    and palette) or 4 (RGBA), with samples brought to 8 bits the way PIL's
+    ``convert("RGB")`` brings them: grey of 1, 2 or 4 bits scaled to 0..255,
+    16-bit grey clipped at 255 (PIL's ``I;16``), every other 16-bit sample
+    cut to its high byte, a palette looked up (indices past its end give
+    black)."""
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] != _SIGNATURE:
@@ -92,15 +128,35 @@ def read_png(path) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = header
-    if depth != 8 or interlace != 0 or ctype not in _CHANNELS:
+    channels, depths = _COLOUR_TYPES.get(ctype, (0, ()))
+    if depth not in depths or interlace not in (0, 1):
         raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, "
-                         f"colour type {ctype}, interlace {interlace}); "
-                         "only 8-bit non-interlaced L/RGB/P/RGBA")
-    pix = _unfilter(zlib.decompress(b"".join(idat)), h, w, _CHANNELS[ctype])
+                         f"colour type {ctype}, interlace {interlace})")
+    data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if interlace == 0:
+        pix, _ = _decode_image(data, h, w, depth, channels)
+    else:  # Adam7: seven sub-images, each filtered on its own
+        pix = np.zeros((h, w, channels),
+                       np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw > 0 and ph > 0:
+                sub, used = _decode_image(data[pos:], ph, pw, depth, channels)
+                pix[y0::dy, x0::dx] = sub
+                pos += used
     if ctype == 3:
         if palette is None:
             raise ValueError(f"{path}: palette image without PLTE")
-        pix = palette[pix[:, :, 0]]
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:len(palette)] = palette[:256]
+        return lut[pix[:, :, 0]]
+    if depth == 16:
+        if ctype == 0:
+            return np.minimum(pix, 255).astype(np.uint8)
+        return (pix >> 8).astype(np.uint8)
+    if depth < 8:
+        return pix * np.uint8(255 // ((1 << depth) - 1))
     return pix
 
 
@@ -134,7 +190,7 @@ def write_png(path, img: np.ndarray) -> None:
 def load_image(img_filepath, grayscale: bool = False) -> np.ndarray:
     """PNG -> (H, W, 3) RGB uint8, or (H, W, 1) luma with ``grayscale``."""
     pix = read_png(img_filepath)
-    arr = np.repeat(pix, 3, axis=2) if pix.shape[2] == 1 \
+    arr = np.repeat(pix[:, :, :1], 3, axis=2) if pix.shape[2] <= 2 \
         else np.ascontiguousarray(pix[:, :, :3])
     if grayscale:
         # cv2.cvtColor(BGR2GRAY) rounding: y = 0.299 R + 0.587 G + 0.114 B.

@@ -4,7 +4,8 @@ One ``nvcc`` call per source into a library with a plain C interface,
 loaded with ``ctypes``: it builds in seconds, where a source that includes
 PyTorch's headers takes minutes, and it needs neither ``ninja`` nor
 PyTorch's extension builder. The library goes to ``_build/`` beside the
-package on first use and is rebuilt when the source is newer. A file lock
+package on first use and is rebuilt when the source, or a header it names
+as a dependency, is newer. A file lock
 taken with ``fcntl`` (released by the kernel when its holder dies, so a
 stale lock file cannot block) keeps concurrent processes from building the
 same library at once; waiting for it times out and raises.
@@ -81,10 +82,12 @@ def _compile(src: Path, lib: Path, timeout: float) -> None:
     BUILD_LOG[src.stem] = {"seconds": seconds, "ptxas": ptxas}
 
 
-def load_library(name: str, force: bool = False,
-                 timeout: float = 600.0) -> ctypes.CDLL:
-    """``csrc/<name>.cu`` -> loaded ``_build/lib<name>.so``. ``force``
-    rebuilds even when the library is up to date."""
+def load_library(name: str, force: bool = False, timeout: float = 600.0,
+                 deps: tuple = ()) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` -> loaded ``_build/lib<name>.so``. ``deps`` names
+    headers in ``csrc/`` that the source includes: an edit to one rebuilds
+    the library too. ``force`` rebuilds even when the library is up to
+    date."""
     if name in _LIBS and not force:
         return _LIBS[name]
     src = CSRC / f"{name}.cu"
@@ -92,7 +95,8 @@ def load_library(name: str, force: bool = False,
     BUILD.mkdir(exist_ok=True)
     deadline = time.monotonic() + timeout
     with _file_lock(BUILD / f"{name}.lock", timeout):
-        if force or not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
+        newest = max((CSRC / n).stat().st_mtime for n in (src.name, *deps))
+        if force or not lib.exists() or lib.stat().st_mtime < newest:
             _compile(src, lib, max(1.0, deadline - time.monotonic()))
     _LIBS[name] = ctypes.CDLL(str(lib))
     return _LIBS[name]

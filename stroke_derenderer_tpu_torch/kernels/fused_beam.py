@@ -3,11 +3,12 @@
 Replaces the Pallas TPU kernel of ``stroke_derenderer_tpu/kernels/
 fused_beam.py`` (``_kernel`` and ``_fused_beam_decode_tpu``), which runs
 the whole beam search for one image in one program. The CUDA source is
-``csrc/fused_beam.cu``; its header says what bounds it on an H100 and what
-the design does about that. In short: one block per image owns its K
-beams and runs the whole step loop; each block-step reads the weights once
-for up to 8 beams and the image's encoder rows once for the same beams;
-blocks never synchronise with each other.
+``csrc/fused_beam.cu``, on the step engine ``csrc/decode_step.cuh`` that it
+shares with K1 (host side in ``kernels/fused_decode.py``): one cooperative
+launch per decode call runs the B x K beams of every image as rows of one
+grid, every block owning a slice of every matrix's columns, with one more
+grid barrier per step than K1 for the choice of the beams. All beam state
+lives in global memory, so the kernel takes every K up to V.
 
 Beside the kernel is its plain version, :func:`fused_beam_decode_plain`,
 which steps the same search in Python with PyTorch ops. The wrapper
@@ -25,28 +26,21 @@ going to the lowest flat index over (K, V), as ``lax.top_k`` orders them.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from stroke_derenderer_tpu_torch.config import BOS, EOS, PAD
 from stroke_derenderer_tpu_torch.kernels.fused_decode import (
-    _DTYPE_CODE, _MATRICES, _check,
+    _MATRICES, _check, launch_step_kernel, pack_step_weights, step_weights,
 )
-from stroke_derenderer_tpu_torch.models.decoder import (
-    STEP_WEIGHTS, decode_step,
-)
+from stroke_derenderer_tpu_torch.models.decoder import decode_step
 
 # Launches of the CUDA kernel since import (or since a caller reset it).
 launch_count = 0
 
+# Grid barriers per decode step.
+BARRIERS_PER_STEP = 5
+
 NEG_INF = -1e30
-# Largest beam the kernel takes: a thread holds one column of every beam's
-# h and c in registers while it reorders them by parent.
-MAX_BEAM = 16
-# Shared memory a block may use on an H100 (227 KB), less room for the
-# kernel's static shared memory.
-_SMEM_LIMIT = 232448 - 2048
 
 
 def log_softmax(logits):
@@ -82,10 +76,11 @@ def fused_beam_decode_plain(enc, enc_proj, h0, c0, w: dict, max_length: int,
     (B, max_length) float32: at each step the smallest gap between
     neighbours among the k + 1 best totals, which says how close the step
     came to another choice or order (inf where the image had finished)."""
-    if k < 1:
-        raise ValueError(f"beam size must be at least 1, got {k}")
     b = enc.shape[0]
     v = w["emb"].shape[0]
+    if not 1 <= k <= v:
+        raise ValueError(f"beam size must be at least 1 and at most the "
+                         f"vocabulary ({v}), got {k}")
     dev = enc.device
     w = {n: (t.double() if n in _MATRICES else t) for n, t in w.items()}
     enc = enc.double().repeat_interleave(k, 0)
@@ -140,33 +135,21 @@ def select_beam(preds, score, lens, length_penalty: float = 0.0):
     return preds[torch.arange(preds.shape[0], device=preds.device), best]
 
 
-def _library():
-    from stroke_derenderer_tpu_torch.kernels.build import load_library
-    lib = load_library("fused_beam")
-    lib.sd_fused_beam_decode.restype = ctypes.c_int
-    lib.sd_fused_beam_decode.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 21 + [ctypes.c_int] * 9
-        + [ctypes.c_void_p])
-    lib.sd_fused_beam_smem.restype = ctypes.c_size_t
-    lib.sd_fused_beam_smem.argtypes = [ctypes.c_int] * 7
-    return lib
-
-
 def _check_beam(enc, enc_proj, h0, c0, w: dict, k: int) -> None:
     _check(enc, enc_proj, h0, c0, w)
-    if not 1 <= k <= MAX_BEAM:
-        raise ValueError(f"the fused beam decode takes beam sizes 1 to "
-                         f"{MAX_BEAM}, got {k}")
+    if k < 1:
+        raise ValueError(f"beam size must be at least 1, got {k}")
     if k > w["emb"].shape[0]:
         raise ValueError(f"beam size {k} exceeds the vocabulary "
                          f"({w['emb'].shape[0]})")
 
 
 def fused_beam_decode_packed(enc, enc_proj, h0, c0, w: dict, max_length: int,
-                             k: int):
+                             k: int, packed: dict | None = None):
     """(preds (B, k, max_length) int32, score (B, k) float32, lens (B, k)
     int32). CPU tensors run the plain version; CUDA tensors run the kernel,
-    in one launch."""
+    in one cooperative launch, on ``packed`` (``pack_step_weights`` of
+    ``w``, packed here when not given)."""
     global launch_count
     if enc.device.type == "cpu":
         return fused_beam_decode_plain(enc, enc_proj, h0, c0, w, max_length,
@@ -174,38 +157,18 @@ def fused_beam_decode_packed(enc, enc_proj, h0, c0, w: dict, max_length: int,
     if enc.device.type != "cuda":
         raise ValueError(f"no fused beam decode for device {enc.device}")
     _check_beam(enc, enc_proj, h0, c0, w, k)
-    b, p, e = enc.shape
-    a = enc_proj.shape[-1]
-    hdim = h0.shape[-1]
-    v, d = w["emb"].shape
-    lib = _library()
-    smem = lib.sd_fused_beam_smem(k, p, e, a, hdim, d, v)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"beam size {k} needs {smem} bytes of shared memory "
-                         f"per block at these widths; the limit is "
-                         f"{_SMEM_LIMIT}")
+    b = enc.shape[0]
     dev = enc.device
     preds = torch.full((b, k, max_length), PAD, dtype=torch.int32, device=dev)
     score = torch.empty((b, k), dtype=torch.float32, device=dev)
     lens = torch.empty((b, k), dtype=torch.int32, device=dev)
-    if b == 0:
-        return preds, score, lens
-    # Back-pointers: each step's parent and written token for every beam.
-    parent = torch.empty((b, max(max_length, 1), k), dtype=torch.int32,
-                         device=dev)
-    written = torch.empty_like(parent)
-    ptr = ctypes.c_void_p
-    rc = lib.sd_fused_beam_decode(
-        _DTYPE_CODE[enc.dtype], ptr(enc.data_ptr()),
-        ptr(enc_proj.data_ptr()), ptr(h0.data_ptr()), ptr(c0.data_ptr()),
-        *(ptr(w[n].data_ptr()) for n in STEP_WEIGHTS),
-        ptr(preds.data_ptr()), ptr(score.data_ptr()), ptr(lens.data_ptr()),
-        ptr(parent.data_ptr()), ptr(written.data_ptr()),
-        b, p, e, a, hdim, d, v, k, max_length,
-        ptr(torch.cuda.current_stream(dev).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"fused beam decode launch failed: CUDA error "
-                           f"{rc}")
+    if b == 0 or max_length == 0:  # the state before the first step
+        score.fill_(NEG_INF)[:, :1] = 0.0
+        return preds, score, lens.fill_(0)
+    launch_step_kernel("fused_beam", enc, enc_proj, h0, c0,
+                       pack_step_weights(w) if packed is None else packed, k,
+                       max_length, {"preds": preds, "score_out": score,
+                                    "lens_out": lens})
     launch_count += 1
     return preds, score, lens
 
@@ -219,7 +182,9 @@ def fused_beam_decode(decoder, enc_seq, max_length: int, beam_size: int = 5,
     enc_seq = enc_seq.contiguous()
     enc_proj = decoder.project_encoding(enc_seq).contiguous()
     h0, c0 = decoder.init_state(enc_seq)
+    dt = enc_seq.dtype
+    packed = step_weights(decoder, dt) if enc_seq.is_cuda else None
     preds, score, lens = fused_beam_decode_packed(
         enc_seq, enc_proj, h0.contiguous(), c0.contiguous(),
-        decoder.weights(enc_seq.dtype), max_length, beam_size)
+        decoder.weights(dt), max_length, beam_size, packed)
     return select_beam(preds, score, lens, length_penalty)

@@ -238,10 +238,13 @@ def test_wrapper_routes_cpu_only_and_checks():
         fb.fused_beam_decode_packed(*meta, w, 12, 3)
     with pytest.raises(ValueError, match="at least 1"):
         fb.fused_beam_decode_plain(enc, ep, h, c, w, 12, 0)
-    fb._check_beam(enc, ep, h, c, w, fb.MAX_BEAM)  # consistent inputs pass
-    for k in (0, fb.MAX_BEAM + 1):
-        with pytest.raises(ValueError, match=f"1 to {fb.MAX_BEAM}"):
-            fb._check_beam(enc, ep, h, c, w, k)
+    v = w["emb"].shape[0]
+    for k in (1, 17, v):  # consistent inputs pass: any K from 1 to V
+        fb._check_beam(enc, ep, h, c, w, k)
+    with pytest.raises(ValueError, match="at least 1"):
+        fb._check_beam(enc, ep, h, c, w, 0)
+    with pytest.raises(ValueError, match="exceeds the vocabulary"):
+        fb._check_beam(enc, ep, h, c, w, v + 1)
     small = dict(w, emb=w["emb"][:4], wfc=w["wfc"][:, :4].contiguous(),
                  bfc=w["bfc"][:4])
     with pytest.raises(ValueError, match="exceeds the vocabulary"):
@@ -278,3 +281,66 @@ def test_config_fields_and_unsupported_options(tmp_path):
     ours, theirs = TStrokesConfig(), StrokesConfig()
     assert (ours.decode, ours.beam_size, ours.length_penalty) == (
         theirs.decode, theirs.beam_size, theirs.length_penalty)
+
+
+@pytest.mark.parametrize("k", [0, 52])
+def test_wrapper_raises_outside_one_to_v(k):
+    """Every K from 1 to V is taken (no other limit); K < 1 and K > V
+    raise, on the CPU as on the card."""
+    _, _, td = _tiny(0, 0.0)  # V = 51
+    enc = torch.from_numpy(_enc(0, 2))
+    ep, (h, c) = td.project_encoding(enc), td.init_state(enc)
+    with pytest.raises(ValueError, match="at least 1"):
+        fb.fused_beam_decode_packed(enc, ep, h, c, td.weights(torch.float32),
+                                    6, k)
+
+
+def test_beam_of_the_whole_vocabulary_runs_on_cpu():
+    _, _, td = _tiny(1, 1.0)  # V = 51
+    enc = torch.from_numpy(_enc(1, 2))
+    ep, (h, c) = td.project_encoding(enc), td.init_state(enc)
+    preds, score, lens = fb.fused_beam_decode_packed(
+        enc, ep, h, c, td.weights(torch.float32), 4, 51)
+    assert preds.shape == (2, 51, 4)
+    assert bool((score[:, :-1] >= score[:, 1:]).all())  # best first
+
+
+@pytest.mark.parametrize("grid", [1, 7, 132])
+@pytest.mark.parametrize("k", [1, 5, 17])
+def test_launch_hands_the_engine_beam_state(monkeypatch, grid, k):
+    """K2's launch on the host side: K in the dims, every pointer set, the
+    beam state and back-pointers sized for B x K rows, each block's row
+    list for all of them."""
+    from stroke_derenderer_tpu_torch.kernels import fused_decode as fd
+    from test_torch_decode import fake_launch
+    entry = fake_launch(monkeypatch, grid)
+    sizes = {}
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        sizes[t.data_ptr()] = tuple(t.shape)
+        return t
+
+    monkeypatch.setattr(torch, "empty", empty)
+    _, _, td = _tiny(0, 0.0, vocab=51)
+    b = 3
+    enc = torch.zeros(b, 9, 16)
+    ep, (h, c) = td.project_encoding(enc), td.init_state(enc)
+    out = {"preds": torch.full((b, k, 12), PAD, dtype=torch.int32),
+           "score_out": torch.zeros(b, k), "lens_out": torch.zeros(
+               b, k, dtype=torch.int32)}
+    fd.launch_step_kernel("fused_beam", enc, ep, h, c,
+                          fd.pack_step_weights(td.weights(torch.float32)), k,
+                          12, out)
+    _, ptrs, dims, got_grid = entry.calls[0]
+    assert got_grid == grid and dims[fd.STEP_DIMS.index("K")] == k
+    got = dict(zip(fd.STEP_POINTERS, ptrs))
+    assert [n for n, v in got.items() if v is None] == ["stamps"]
+    shape = lambda n: sizes[got[n]]
+    assert shape("bp_parent") == shape("bp_write") == (b, 12, k)
+    for n in ("tok", "parent", "score", "fin", "len"):
+        assert shape(n) == (b * k,)
+    assert shape("done") == shape("steps") == (b,)
+    assert shape("rows") == (grid, 2 * b * k)
+    assert shape("h") == (2, b * k, 16) and shape("logits") == (b * k, 51)

@@ -120,8 +120,9 @@ def test_beam_kernel_matches_plain_version(dtype, b):
 
 @pytest.mark.gpu
 def test_beam_kernel_takes_every_beam_size_up_to_its_limit():
-    """K = 1 gives K1's tokens; K = 16 runs; K = 17 raises a ValueError that
-    names the limit, and never reaches the plain version."""
+    """K = 1 gives K1's tokens; K = 16, 17 (above the old kernel's limit)
+    and K = V run in one launch and match the plain version; K = V + 1
+    raises."""
     dev = _card()
     from stroke_derenderer_tpu_torch.kernels import fused_beam as fb
     dec = _shipped_decoder(torch.float32, dev)
@@ -131,11 +132,18 @@ def test_beam_kernel_takes_every_beam_size_up_to_its_limit():
     one = fb.fused_beam_decode_packed(enc, ep, h, c, w, 64, 1)[0][:, 0]
     assert torch.equal(one, fd.fused_greedy_decode_packed(enc, ep, h, c, w,
                                                           64))
-    preds, score, _ = fb.fused_beam_decode_packed(enc, ep, h, c, w, 16, 16)
-    assert preds.shape == (2, 16, 16)
-    assert bool((score[:, :-1] >= score[:, 1:]).all())  # best first
-    with pytest.raises(ValueError, match="1 to 16"):
-        fb.fused_beam_decode_packed(enc, ep, h, c, w, 16, 17)
+    for k, steps in ((16, 16), (17, 48), (451, 6)):
+        before = fb.launch_count
+        preds, score, lens = fb.fused_beam_decode_packed(enc, ep, h, c, w,
+                                                         steps, k)
+        assert fb.launch_count == before + 1
+        assert preds.shape == (2, k, steps)
+        assert bool((score[:, :-1] >= score[:, 1:]).all())  # best first
+        want = fb.fused_beam_decode_plain(enc, ep, h, c, w, steps, k)
+        assert torch.equal(preds, want[0]) and torch.equal(lens, want[2])
+        torch.testing.assert_close(score, want[1], rtol=1e-5, atol=0)
+    with pytest.raises(ValueError, match="exceeds the vocabulary"):
+        fb.fused_beam_decode_packed(enc, ep, h, c, w, 16, 452)
 
 
 @pytest.mark.gpu
@@ -196,3 +204,27 @@ def test_cli_beam_path_on_card(tmp_path):
     got = read_png(tmp_path / "golden_input_BINARIZED.png")
     want = read_png(REPO / "tests" / "golden" / "expected_BINARIZED.png")
     assert (got == want).mean() >= 0.999
+
+
+@pytest.mark.gpu
+def test_cli_beam_of_17_on_card(tmp_path):
+    """--beam-size 17 (above the old kernel's limit of 16) on the card:
+    every image with glyphs gets its strokes, through K2."""
+    _card()
+    import json
+    from stroke_derenderer_tpu_torch.cli import entrypoint
+    from stroke_derenderer_tpu_torch.io import read_png
+    from stroke_derenderer_tpu_torch.kernels import fused_beam as fb
+    before = fb.launch_count
+    assert entrypoint(["-models", str(REPO / "models_demo"), "-input",
+                       str(REPO / "tests" / "golden"), "--output",
+                       str(tmp_path), "--decode", "beam", "--beam-size",
+                       "17"]) == 0
+    with_glyphs = [p for p in tmp_path.glob("*_BINARIZED.png")
+                   if read_png(p).any()]
+    assert with_glyphs
+    assert fb.launch_count - before == len(with_glyphs)
+    for p in with_glyphs:
+        stem = p.name[:-len("_BINARIZED.png")]
+        strokes = json.loads((tmp_path / f"{stem}_STROKES.json").read_text())
+        assert strokes

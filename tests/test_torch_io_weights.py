@@ -2,6 +2,8 @@
 writer round trip, the msgpack reader against flax, and ``from_flax``
 leaf for leaf."""
 
+import struct
+import zlib
 from pathlib import Path
 
 import flax.serialization
@@ -54,13 +56,142 @@ def test_png_reader_palette(tmp_path):
     np.testing.assert_array_equal(tio.load_image(tmp_path / "p.png"), want)
 
 
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def _png_bytes(w, h, depth, ctype, data: bytes, interlace=0, palette=None):
+    out = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+    if palette is not None:
+        out += _chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return out + _chunk(b"IDAT", zlib.compress(data)) + _chunk(b"IEND", b"")
+
+
+def _filtered_rows(sub, depth, rng) -> bytes:
+    """(h, w, c) samples -> packed rows, each behind a random filter type
+    (all five occur), as a PNG encoder writes them."""
+    h, w, c = sub.shape
+    if depth == 16:
+        rows = sub.astype(">u2").reshape(h, w * c).view(np.uint8)
+    elif depth == 8:
+        rows = sub.astype(np.uint8).reshape(h, w * c)
+    else:
+        per = 8 // depth
+        padded = np.zeros((h, -(-w // per) * per), np.uint16)
+        padded[:, :w] = sub[:, :, 0]
+        shifts = np.arange(8 - depth, -1, -depth)
+        rows = (padded.reshape(h, -1, per) << shifts).sum(-1).astype(np.uint8)
+    bpp = max(1, depth * c // 8)
+    x = rows.astype(np.int16)
+    b = np.vstack([np.zeros_like(x[:1]), x[:-1]])
+    a = np.pad(x, ((0, 0), (bpp, 0)))[:, :-bpp]
+    cc = np.pad(b, ((0, 0), (bpp, 0)))[:, :-bpp]
+    p = a + b - cc
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
+    preds = [np.zeros_like(x), a, b, (a + b) >> 1, paeth]
+    ftype = np.arange(h) % 5
+    rng.shuffle(ftype)
+    out = bytearray()
+    for r in range(h):
+        out.append(int(ftype[r]))
+        out += ((x[r] - preds[ftype[r]][r]) & 255).astype(np.uint8).tobytes()
+    return bytes(out)
+
+
+def _write_png(path, samples, depth, ctype, interlace=0, palette=None,
+               seed=0):
+    rng = np.random.default_rng(seed)
+    h, w, _ = samples.shape
+    if interlace:
+        passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+                  (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+        data = b"".join(_filtered_rows(samples[y0::dy, x0::dx], depth, rng)
+                        for x0, y0, dx, dy in passes
+                        if x0 < w and y0 < h)
+    else:
+        data = _filtered_rows(samples, depth, rng)
+    path.write_bytes(_png_bytes(w, h, depth, ctype, data, interlace,
+                                palette))
+
+
+# (name, bit depth, colour type, samples per pixel, interlace, palette
+# entries, height, width): every depth and colour type PIL reads, plain and
+# Adam7-interlaced, at sizes where some interlace passes are empty.
+PNG_CASES = [
+    ("grey1", 1, 0, 1, 0, 0, 11, 13), ("grey2", 2, 0, 1, 0, 0, 11, 13),
+    ("grey4", 4, 0, 1, 0, 0, 11, 13), ("grey16", 16, 0, 1, 0, 0, 11, 13),
+    ("palette1", 1, 3, 1, 0, 2, 9, 17), ("palette2", 2, 3, 1, 0, 3, 9, 17),
+    ("palette4", 4, 3, 1, 0, 16, 9, 17), ("rgb16", 16, 2, 3, 0, 0, 7, 10),
+    ("rgba16", 16, 6, 4, 0, 0, 7, 10), ("grey_alpha8", 8, 4, 2, 0, 0, 7, 10),
+    ("grey_alpha16", 16, 4, 2, 0, 0, 7, 10),
+    ("adam7_rgb8", 8, 2, 3, 1, 0, 19, 21),
+    ("adam7_grey1", 1, 0, 1, 1, 0, 19, 21),
+    ("adam7_grey16", 16, 0, 1, 1, 0, 10, 12),
+    ("adam7_palette4", 4, 3, 1, 1, 12, 9, 9),
+    ("adam7_rgba8_tiny", 8, 6, 4, 1, 0, 3, 2),
+    ("adam7_grey_alpha16", 16, 4, 2, 1, 0, 6, 5),
+]
+
+
+@pytest.mark.parametrize("name,depth,ctype,chans,interlace,n_pal,h,w",
+                         PNG_CASES, ids=[c[0] for c in PNG_CASES])
+def test_png_reader_every_format_matches_pil(tmp_path, name, depth, ctype,
+                                             chans, interlace, n_pal, h, w):
+    """PNGs of every bit depth and colour type, plain and Adam7, with all
+    five row filters: load_image gives exactly PIL's convert("RGB"), the
+    16-bit grey samples on both sides of 255 included."""
+    rng = np.random.default_rng(len(name) * 31 + depth)
+    # Palette indices may point past a short palette (PIL gives black).
+    samples = rng.integers(0, 1 << depth, (h, w, chans))
+    if depth == 16 and ctype == 0:
+        samples[0, :4, 0] = (100, 255, 256, 1000)
+    palette = rng.integers(0, 256, (n_pal, 3)) if ctype == 3 else None
+    path = tmp_path / f"{name}.png"
+    _write_png(path, samples, depth, ctype, interlace, palette)
+    want = np.asarray(Image.open(path).convert("RGB"))
+    np.testing.assert_array_equal(tio.load_image(path), want)
+
+
+@pytest.mark.parametrize("mode,kwargs", [("1", {}), ("P", {"bits": 4}),
+                                         ("P", {"bits": 2}), ("I;16", {}),
+                                         ("LA", {})])
+def test_png_reader_pil_written_low_and_high_depths(tmp_path, mode, kwargs):
+    """Files PIL itself writes at 1, 2, 4 and 16 bits and as grey + alpha
+    load as PIL loads them."""
+    rng = np.random.default_rng(5)
+    if mode == "I;16":
+        img = Image.fromarray(rng.integers(0, 700, (13, 9)).astype(np.uint16))
+    elif mode == "P":
+        img = Image.fromarray(rng.integers(0, 1 << kwargs["bits"], (13, 9))
+                              .astype(np.uint8), "P")
+        img.putpalette(rng.integers(0, 256, 48).astype(np.uint8).tobytes())
+    elif mode == "LA":
+        img = Image.fromarray(rng.integers(0, 256, (13, 9, 2))
+                              .astype(np.uint8), "LA")
+    else:
+        img = Image.fromarray(rng.integers(0, 2, (13, 9)).astype(bool))
+    img.save(tmp_path / "x.png", **kwargs)
+    with open(tmp_path / "x.png", "rb") as f:
+        header = f.read(29)
+    assert header[24] == {"1": 1, "P": kwargs.get("bits"), "I;16": 16,
+                          "LA": 8}[mode]
+    want = np.asarray(Image.open(tmp_path / "x.png").convert("RGB"))
+    np.testing.assert_array_equal(tio.load_image(tmp_path / "x.png"), want)
+
+
 def test_png_reader_rejects_unsupported(tmp_path):
-    Image.fromarray(np.zeros((4, 4), np.uint16)).save(tmp_path / "x16.png")
-    Image.fromarray(np.zeros((4, 4, 2), np.uint8), "LA").save(
-        tmp_path / "la.png")
-    for name in ("x16.png", "la.png"):
-        with pytest.raises(ValueError):
-            tio.read_png(tmp_path / name)
+    """Files that are no valid PNG raise: bit depths a colour type does not
+    allow, an unknown colour type or interlace method, a bad signature."""
+    for name, depth, ctype, interlace in (("g3", 3, 0, 0), ("rgb4", 4, 2, 0),
+                                          ("p16", 16, 3, 0), ("c5", 8, 5, 0),
+                                          ("i2", 8, 0, 2)):
+        (tmp_path / f"{name}.png").write_bytes(
+            _png_bytes(2, 2, depth, ctype, b"\0" * 64, interlace))
+        with pytest.raises(ValueError, match="unsupported PNG"):
+            tio.read_png(tmp_path / f"{name}.png")
     (tmp_path / "bad.png").write_bytes(b"not a png")
     with pytest.raises(ValueError):
         tio.read_png(tmp_path / "bad.png")

@@ -54,17 +54,26 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
 
     monkeypatch.setattr(build, "load_library", fake_load)
     monkeypatch.setattr(build, "find_nvcc", lambda: "nvcc")
-    monkeypatch.setattr(fd, "rows_per_block", lambda: 4)
+    monkeypatch.setattr(fd, "launch_grid", lambda *a: (7, None))
+    monkeypatch.setattr(fd, "barrier_probe", lambda n, grid, dev: None)
 
-    def counted_plain(*args):
+    def fake_clock(name, enc, ep, h, c, packed, k, max_length, outputs):
+        # A run of 3 steps whose phases take 1, 2, ... microseconds.
+        nph = 4 if name == "fused_decode" else 5
+        t = torch.cumsum(torch.arange(1, 3 + 3 * nph + 1) * 1000, 0)
+        outputs["stamps"][:len(t)] = t
+
+    monkeypatch.setattr(fd, "launch_step_kernel", fake_clock)
+
+    def counted_plain(*args, packed=None):
         fd.launch_count += 1
-        return fd.fused_greedy_decode_plain(*args)
+        return fd.fused_greedy_decode_plain(*args[:6])
 
     monkeypatch.setattr(fd, "fused_greedy_decode_packed", counted_plain)
 
-    def counted_beam(*args):
+    def counted_beam(*args, packed=None):
         fb.launch_count += 1
-        return fb.fused_beam_decode_plain(*args)
+        return fb.fused_beam_decode_plain(*args[:7])
 
     monkeypatch.setattr(fb, "fused_beam_decode_packed", counted_beam)
 
@@ -108,3 +117,17 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
     assert record["main_beam"]["launches"]["K1"] == 0
     for phase in ("k1", "k2", "k3"):
         assert record[phase] and all(c["ok"] for c in record[phase])
+    # K2 beyond the old limit of 16 beams, and the launch shape of K1 and K2.
+    assert {c.get("K") for c in record["k2"]} >= {chip_smoke.BEAM,
+                                                  chip_smoke.BIG_BEAM}
+    for c in record["k1"] + [c for c in record["k2"] if "ms" in c]:
+        assert c["grid"] == 7 and c["step_ms"] > 0
+    assert record["k1_breakdown"]["steps"] == 3
+    assert list(record["k2_breakdown"]["phase_us"]) == list(
+        chip_smoke.PHASES)
+    # Steps of 4+5+6+7, 8+...+11 and 12+...+15 us.
+    assert record["k1_breakdown"]["step_us"] == (22 + 38 + 54) / 3
+    assert record["k1_breakdown"]["phase_us"]["scores"] == (4 + 8 + 12) / 3
+    launches = [json.loads(x) for x in lines if x.startswith('{"launch"')]
+    assert [(x["launch"], x["barriers_per_step"]) for x in launches] == [
+        ("K1", 4), ("K2", 5)]
