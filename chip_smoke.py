@@ -37,11 +37,20 @@ non-zero and prints no result:
    the old kernel's limit of 16) meets the same bars on the golden glyphs.
    Timed with CUDA events.
 6. k3: K3 against its plain version with bfloat16 streams at B = 1, 13 and
-   80 (synthetic) and on the golden glyphs, P = 196, the shipped attention
-   weights: ``out`` and ``alpha`` within ``K3_ATOL`` + ``K3_RTOL`` * |plain|.
-   Then ``greedy_decode(fused=True)`` on the golden glyphs: K3 launches
-   once per decoded step, and its tokens meet K1's bars against the same
-   entry run on the plain version.
+   80 (synthetic) and on the golden glyphs, P = 196, and at a ragged shape
+   (B = 3, P = 13), the shipped attention weights packed once
+   (``attention_weights``): ``out`` and ``alpha`` within ``K3_ATOL`` +
+   ``K3_RTOL`` * |plain|. Each case records the kernel's own time (a CUDA
+   graph of 20 launches of the C entry on prepared inputs, replayed, timed
+   with CUDA events) at every cluster size of ``K3_CLUSTERS``, the wrapper
+   call's time, the launch shape (clusters G, CTAs per cluster C, row tile,
+   stages, shared memory), the bytes the busiest CTA reads and the phase
+   clock (CTA 0's microseconds per phase of its first row tile). Then the
+   cost of one cluster barrier, alone and with a read of a neighbour CTA's
+   shared memory, at each cluster size (``cluster_barrier_cost``). Then
+   ``greedy_decode(fused=True)`` on the golden glyphs: K3 launches once per
+   decoded step, and its tokens meet K1's bars against the same entry run
+   on the plain version.
 7. main-beam: ``cli.run`` as in phase 4 with ``--decode beam --beam-size
    5``: one result per input, every output file, the golden mask, and K2
    launched once per image that has glyphs (K1 not at all). The golden
@@ -51,7 +60,7 @@ non-zero and prints no result:
 K1 and K2 are one cooperative launch each per decode call; phases 3 and 5
 record each launch's grid, its grid barriers per step and the time of one
 grid-wide step, and one line per kernel prints them with the registers and
-spills. Then one JSON line with the kernel table (K1, K2, K3) and, last, one JSON
+spills (K3: its clusters, CTAs per cluster and cluster barriers). Then one JSON line with the kernel table (K1, K2, K3) and, last, one JSON
 line ``{"ok": true, "device": {...}}``. ``--out`` also writes everything to
 a JSON file.
 """
@@ -85,6 +94,8 @@ BIG_BEAM = 17       # a beam size above 16 (the old kernel's limit), phase 5
 K2_BATCH = 13       # synthetic-glyph batch size for phase 5
 SCORE_RTOL = 1e-5   # float32 beam scores, K2 against its plain version
 K3_BATCHES = (1, 13, 80)  # synthetic-glyph batch sizes for phase 6
+K3_RAGGED = (3, 13)       # (B, P) of phase 6's ragged case
+K3_CLUSTERS = (8, 16)     # cluster sizes K3 is timed at (the wrapper picks)
 # K3 and its plain version both sum in float32, in other orders.
 K3_ATOL, K3_RTOL = 1e-5, 1e-4
 LIBS = ("fused_decode", "fused_beam", "decode_attention")
@@ -417,32 +428,102 @@ def compare_beam_of_one(fb, fd, decoder, seq, label: str) -> dict:
             "max_gap_at_first_difference": worst, "ok": worst < F32_GAP}
 
 
+def kernel_ms(fn, reps: int = 20) -> float:
+    """The time of one call of ``fn`` on the card alone: ``reps`` calls
+    captured in a CUDA graph, the graph replayed and timed with CUDA
+    events, so that the host's launch overhead does not count."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, reps=5) / reps
+
+
+def k3_bytes_per_cta(plan: dict, config: dict, p: int, e: int, a: int,
+                     d: int) -> int:
+    """Bytes the busiest CTA of one K3 launch reads from L2: its weight
+    slice once per row tile, and its positions' enc and enc_proj rows."""
+    rows = max(int(x) for x in plan["rows"][1:] - plan["rows"][:-1])
+    tiles = -(-rows // config["row_tile"])
+    cols = int((plan["columns"][1:] - plan["columns"][:-1]).max())
+    pos = int((plan["positions"][1:] - plan["positions"][:-1]).max())
+    return 2 * (tiles * cols * (d + 7) // 8 * 8 + rows * pos * (e + a))
+
+
 def compare_k3(da, decoder, seq, label: str) -> dict:
     """K3 against its plain version (bfloat16 streams) on one step's
-    inputs: the decoder's initial h over this encoder sequence."""
+    inputs: the decoder's initial h over this encoder sequence; the
+    kernel's own time at each cluster size and the wrapper's time."""
     import torch
     from stroke_derenderer_tpu_torch.models.decoder import ATTENTION_WEIGHTS
     enc = seq.to(torch.bfloat16).contiguous()
     enc_proj = decoder.project_encoding(enc).contiguous()
     h = decoder.init_state(enc)[0].contiguous()
     att_w = [getattr(decoder, k) for k in ATTENTION_WEIGHTS]
-    got = da.fused_attention_gate(enc, enc_proj, h, *att_w)
+    packed = da.attention_weights(decoder)
+    got = da.fused_attention_gate(enc, enc_proj, h, *att_w, packed=packed)
     ref = da.fused_attention_gate_plain(enc, enc_proj, h, *att_w,
                                         stream_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
     ok = all(bool(((g - r).abs() <= K3_ATOL + K3_RTOL * r.abs()).all())
              for g, r in zip(got, ref))
-    rec = {"case": label, "B": int(enc.shape[0]), "P": int(enc.shape[1]),
-           "max_abs_err": err, "ok": ok,
+    b, p, e = enc.shape
+    a, d = enc_proj.shape[-1], h.shape[-1]
+    rec = {"case": label, "B": b, "P": p, "max_abs_err": err, "ok": ok,
            "alpha_sum_err": float((ref[1].sum(1) - 1).abs().max())}
-    rec["ms"] = cuda_ms(lambda: da.fused_attention_gate(
-        enc, enc_proj, h, *att_w), reps=20)
+    out, alpha = (torch.empty_like(t) for t in got)
+    rec["ms_by_cluster"] = {}
+    for c in K3_CLUSTERS:
+        config = da.kernel_config(enc.device, c, p, e, a, d)
+        plan = da.attention_plan(b, p, a, e, c, config["clusters"])
+        cfg = {"G": len(plan["rows"]) - 1, "C": c,
+               "clusters_on_card": config["clusters"],
+               "row_tile": config["row_tile"], "stages": config["stages"],
+               "smem_bytes": config["smem"],
+               "bytes_per_cta": k3_bytes_per_cta(plan, config, p, e, a, d)}
+        got_c = da.fused_attention_gate(enc, enc_proj, h, *att_w,
+                                        packed=packed, cluster=c)
+        torch.cuda.synchronize()
+        rec["ok"] = rec["ok"] and all(
+            bool(((g - r).abs() <= K3_ATOL + K3_RTOL * r.abs()).all())
+            for g, r in zip(got_c, ref))
+        cfg["ms"] = kernel_ms(lambda: da.launch_attention(
+            enc, enc_proj, h, packed, out, alpha, c))
+        rec["ms_by_cluster"][str(c)] = cfg
+    chosen = da.choose_cluster(enc.device, b, p, e, a, d)
+    rec.update(rec["ms_by_cluster"][str(chosen)])
+    stamps = torch.zeros(len(da.STAMPS), dtype=torch.int64, device=enc.device)
+    da.launch_attention(enc, enc_proj, h, packed, out, alpha, chosen, stamps)
+    torch.cuda.synchronize()
+    rec["phase_us"] = da.phase_us(stamps.cpu())
+    rec["wrapper_ms"] = cuda_ms(lambda: da.fused_attention_gate(
+        enc, enc_proj, h, *att_w, packed=packed), reps=20)
     rec["plain_ms"] = cuda_ms(lambda: da.fused_attention_gate_plain(
         enc, enc_proj, h, *att_w, stream_dtype=torch.bfloat16), reps=20)
     rec.update(k3_cost(enc, enc_proj, h, [t.to(torch.bfloat16)
                                           for t in att_w]))
     return rec
+
+
+def cluster_barrier_cost(da, cluster: int, clusters: int, dev) -> dict:
+    """One cluster barrier of ``clusters`` clusters of ``cluster`` CTAs when
+    every CTA arrives at once: a launch crossing 2000 barriers less one
+    crossing none, each timed alone (``kernel_ms``); and the same with a
+    read of the neighbour CTA's shared memory before each barrier."""
+    none = kernel_ms(lambda: da.cluster_probe(0, cluster, clusters, False,
+                                              dev), reps=5)
+    many = kernel_ms(lambda: da.cluster_probe(2000, cluster, clusters, False,
+                                              dev), reps=5)
+    swap = kernel_ms(lambda: da.cluster_probe(2000, cluster, clusters, True,
+                                              dev), reps=5)
+    return {"cluster": cluster, "clusters": clusters,
+            "cluster_barrier_us": (many - none) / 2000 * 1e3,
+            "barrier_and_dsmem_read_us": (swap - none) / 2000 * 1e3,
+            "empty_launch_us": none * 1e3}
 
 
 def compare_fused_greedy(da, decoder, seq, dtype) -> dict:
@@ -459,7 +540,7 @@ def compare_fused_greedy(da, decoder, seq, dtype) -> dict:
     torch.cuda.synchronize()
     entry_s = time.monotonic() - t0
     launches = da.launch_count
-    da.fused_attention_gate = lambda *a: da.fused_attention_gate_plain(
+    da.fused_attention_gate = lambda *a, **k: da.fused_attention_gate_plain(
         *a, stream_dtype=torch.bfloat16)
     try:
         t0 = time.monotonic()
@@ -721,9 +802,21 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     k3_checks = []
     with torch.inference_mode():
-        for label in [f"synthetic B={b}" for b in K3_BATCHES] + ["golden"]:
+        rb, rp = K3_RAGGED
+        seqs[f"ragged B={rb} P={rp}"] = seqs[
+            f"synthetic B={max(K3_BATCHES)}"][:rb, :rp]
+        for label in ([f"synthetic B={b}" for b in K3_BATCHES]
+                      + ["golden", f"ragged B={rb} P={rp}"]):
             rec = compare_k3(da, decoder, seqs[label], label)
             k3_checks.append(rec)
+            print(json.dumps(rec), flush=True)
+        golden = pick(k3_checks, "golden")
+        record["cluster_barrier"] = [
+            cluster_barrier_cost(
+                da, c, golden["ms_by_cluster"][str(c)]["clusters_on_card"],
+                dev)
+            for c in K3_CLUSTERS]
+        for rec in record["cluster_barrier"]:
             print(json.dumps(rec), flush=True)
         for dtype in (torch.float32, torch.bfloat16):
             rec = compare_fused_greedy(da, decoder, seqs["golden"], dtype)
@@ -774,6 +867,16 @@ def main(argv=None) -> int:
                           "barriers_per_step": rec["barriers_per_step"],
                           "step_ms": rec["step_ms"],
                           "ptxas": record["build"][lib]["kernels"]}))
+    golden_k3 = pick(k3_checks, "golden")
+    print(json.dumps({"launch": "K3", "clusters": golden_k3["G"],
+                      "cluster": golden_k3["C"],
+                      "grid": golden_k3["G"] * golden_k3["C"],
+                      "threads": 256, "cluster_barriers_per_row_tile": 2,
+                      "row_tile": golden_k3["row_tile"],
+                      "smem_bytes": golden_k3["smem_bytes"],
+                      "bytes_per_cta": golden_k3["bytes_per_cta"],
+                      "ptxas": record["build"]["decode_attention"][
+                          "kernels"]}))
     fused_entry = pick(k3_checks, "golden, greedy_decode(fused=True)",
                        "bfloat16")
     # Tokens are integers: for K1 and K2 max_abs_err is the largest share of

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Compare builds of the port's decode kernels, K1 and K2, in one run on one
-CUDA card.
+"""Compare builds of the port's decode kernels, K1, K2 and K3, in one run on
+one CUDA card.
 
     python3 scripts/torch_decode_ab.py NAME=CSRC_DIR [NAME=CSRC_DIR ...]
 
-Each CSRC_DIR holds ``fused_decode.cu``, ``fused_beam.cu`` and
-``decode_step.cuh``: the port's own ``stroke_derenderer_tpu_torch/csrc``, or
-another commit's, unpacked with ``git archive``. Every variant is built
+Each CSRC_DIR holds ``fused_decode.cu``, ``fused_beam.cu``,
+``decode_step.cuh`` and ``decode_attention.cu``: the port's own
+``stroke_derenderer_tpu_torch/csrc``, or another commit's, unpacked with
+``git archive``. Every variant is built
 with one ``nvcc`` call per source, all started together, into
 ``stroke_derenderer_tpu_torch/_build/ab/NAME``. Then the variants run in
 the order A, B, ..., B, A (so that drift of the card shows) on the same
@@ -16,6 +17,15 @@ steps. One JSON line per variant and case: whether its tokens equal the
 first variant's, ms per call (CUDA events around 5 calls after a warm-up),
 steps, us per step, and the phase clock's us per step of each phase
 (scores, attend, LSTM, head[, select]), each with its grid barrier.
+
+K3 runs one attention step at B = 4 and B = 80 (P = 196) on the decoder's
+initial h, through each variant's own C entry on prepared bfloat16 inputs:
+the cluster design's (``sd_attention_config`` present: the packed weights
+of ``attention_weights``) or the first design's (one block per row: the
+weights cast to bfloat16 once). One JSON line per variant and case: the
+largest difference of out and alpha from the first variant's, the kernel's
+own ms (a CUDA graph of 20 launches, replayed 5 times, CUDA events), and
+the ms of 20 launches from the host in a loop.
 """
 
 from __future__ import annotations
@@ -30,9 +40,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-LIBS = ("fused_decode", "fused_beam")
+LIBS = ("fused_decode", "fused_beam", "decode_attention")
 MAX_LENGTH = 384
 CASES = {"K1 B=4": (4, 1), "K1 B=80": (80, 1), "K2 B=4 K=5": (4, 5)}
+K3_CASES = {"K3 B=4": 4, "K3 B=80": 80}
 
 
 def build_all(variants: dict, out: Path) -> None:
@@ -59,6 +70,7 @@ def main(argv: list[str]) -> int:
 
     from stroke_derenderer_tpu_torch import weights as tw
     from stroke_derenderer_tpu_torch.kernels import build
+    from stroke_derenderer_tpu_torch.kernels import decode_attention as da
     from stroke_derenderer_tpu_torch.kernels import fused_beam as fb
     from stroke_derenderer_tpu_torch.kernels import fused_decode as fd
     from stroke_derenderer_tpu_torch.models.decoder import AttentiveDecoder
@@ -132,6 +144,60 @@ def main(argv: list[str]) -> int:
                                                                      nph)
         return steps, [round(float(x) / 1e3, 2) for x in per.mean(0)]
 
+    for seed, (case, b) in enumerate(K3_CASES.items(), start=len(CASES)):
+        rng = np.random.default_rng(seed)
+        enc = torch.from_numpy(np.maximum(rng.normal(1.0, 1.5, (b, 196, 512)),
+                                          0).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        inputs[case] = (enc, dec.project_encoding(enc).contiguous(),
+                        dec.init_state(enc)[0].contiguous())
+    att_packed = da.attention_weights(dec)
+    plain_w = [getattr(dec, k).to(torch.bfloat16).contiguous()
+               for k in ("watt", "batt", "v", "wf", "bf")]
+
+    def k3_launcher(lib, case):
+        enc, ep, h = inputs[case]
+        b, p, e = enc.shape
+        res = (torch.empty((b, e), device=dev),
+               torch.empty((b, p), device=dev))
+        if hasattr(lib, "sd_attention_config"):
+            return (lambda: da.launch_attention(enc, ep, h, att_packed,
+                                                *res), res)
+        fn = lib.sd_attention_gate
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        ptrs = [t.data_ptr() for t in (enc, ep, h, *plain_w, *res)]
+
+        def launch():
+            rc = fn(*ptrs, b, p, e, ep.shape[-1], h.shape[-1],
+                    torch.cuda.current_stream(dev).cuda_stream)
+            if rc:
+                raise RuntimeError(f"CUDA error {rc}")
+        return launch, res
+
+    def events_ms(fn, reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    def k3_times(launch):
+        launch()
+        torch.cuda.synchronize()
+        loop = events_ms(launch, 20)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(20):
+                launch()
+        graph.replay()
+        torch.cuda.synchronize()
+        return events_ms(graph.replay, 5) / 20, loop
+
     first = {}
     names = list(variants)
     with torch.inference_mode():
@@ -141,6 +207,19 @@ def main(argv: list[str]) -> int:
                                                      f"lib{lib}.so"))
                                 for lib in LIBS})
             fd._PLANS.clear()
+            da._CONFIGS.clear()
+            for case in K3_CASES:
+                launch, res = k3_launcher(build._LIBS["decode_attention"],
+                                          case)
+                launch()
+                torch.cuda.synchronize()
+                ref = first.setdefault(case, [t.clone() for t in res])
+                graph_ms, loop_ms = k3_times(launch)
+                print(json.dumps({
+                    "variant": name, "case": case,
+                    "max_abs_diff_from_first": max(
+                        float((t - r).abs().max()) for t, r in zip(res, ref)),
+                    "kernel_ms": graph_ms, "loop_ms": loop_ms}), flush=True)
             for case in CASES:
                 got = run(case)
                 first.setdefault(case, got)

@@ -171,7 +171,9 @@ def greedy_decode(decoder: AttentiveDecoder, enc_seq, max_length: int,
     ``kernels.decode_attention.fused_attention_gate`` (the CUDA kernel K3 on
     the card, its plain version on the CPU), given the float32 parameters
     as the JAX entry gives them, and the LSTM and head from
-    :func:`step_with_awe`."""
+    :func:`step_with_awe`. On the card the attention weights are packed once
+    per decoder and the encoder sequence and its projection are cast to the
+    kernel's bfloat16 streams once per decode, not at every step."""
     enc_proj = decoder.project_encoding(enc_seq)
     h, c = decoder.init_state(enc_seq)
     w = decoder.weights(enc_seq.dtype)
@@ -181,12 +183,17 @@ def greedy_decode(decoder: AttentiveDecoder, enc_seq, max_length: int,
         )
         return fused_greedy_decode_plain(enc_seq, enc_proj, h, c, w,
                                          max_length, return_gaps)
-    from stroke_derenderer_tpu_torch.kernels import decode_attention
+    from stroke_derenderer_tpu_torch.kernels import decode_attention as da
     att_w = [getattr(decoder, k) for k in ATTENTION_WEIGHTS]
+    packed, enc_k, proj_k = None, enc_seq, enc_proj
+    if enc_seq.is_cuda:
+        packed = da.attention_weights(decoder)
+        enc_k, proj_k = (t.to(torch.bfloat16).contiguous()
+                         for t in (enc_seq, enc_proj))
 
     def step(emb, h, c):
-        awe, _ = decode_attention.fused_attention_gate(enc_seq, enc_proj, h,
-                                                       *att_w)
+        awe, _ = da.fused_attention_gate(enc_k, proj_k, h, *att_w,
+                                         packed=packed)
         return step_with_awe(w, emb, awe, h, c)
 
     return greedy_loop(step, w["emb"], h, c, max_length, return_gaps)

@@ -152,3 +152,126 @@ def test_dispatcher_routes_cpu_only_and_checks():
             da._check(*args[:i], bad, *args[i + 1:])
     with pytest.raises(ValueError, match="no encoder positions"):
         da._check(args[0][:, :0], args[1][:, :0], *args[2:])
+
+
+# --- the cluster design's host side: plan, packed weights, split softmax ---
+
+@pytest.mark.parametrize("cluster", [1, 8, 16])
+@pytest.mark.parametrize("a,e", [(512, 512), (24, 16)])
+def test_attention_plan_covers_everything_once(cluster, a, e):
+    """Every row, [W_att | W_f] column, position and output column belongs
+    to exactly one cluster or CTA, in contiguous ranges, within the sizes
+    the kernel lays its shared memory out for."""
+    for p in (1, 13, 196):
+        for b in (0, 1, 4, 13, 80):
+            for clusters in (None, 7):
+                plan = da.attention_plan(b, p, a, e, cluster, clusters)
+                g = min(b, clusters or 132 // cluster)
+                assert all(t.dtype == np.int32 for t in plan.values())
+                for key, total, n, most in (
+                        ("rows", b, g, -(-b // max(g, 1))),
+                        ("columns", a + e, cluster, a + e),
+                        ("positions", p, cluster, -(-p // cluster)),
+                        ("outputs", e, cluster,
+                         4 * -(-(e // 4) // cluster))):
+                    starts = plan[key]
+                    assert len(starts) == n + 1, key
+                    owned = np.concatenate(
+                        [np.arange(starts[i], starts[i + 1])
+                         for i in range(n)] or [np.zeros(0, int)])
+                    np.testing.assert_array_equal(owned, np.arange(total))
+                    assert np.diff(starts).max(initial=0) <= most, key
+                assert not (plan["columns"][:-1] % 8).any()
+                assert not (plan["outputs"][:-1] % 4).any()
+
+
+def test_attention_plan_rejects_cluster_sizes():
+    for bad in (0, 17):
+        with pytest.raises(ValueError, match="cluster size"):
+            da.attention_plan(4, 196, 512, 512, bad)
+
+
+def test_pack_attention_weights_round_trips_and_is_cached():
+    """m1's rows are the columns of W_att, then W_f, bit for bit in
+    bfloat16, zero-padded to a multiple of 8; each row 16-byte aligned; the
+    decoder's pack is made once and remade when a weight changes."""
+    d, a, e = 12, 24, 16
+    args = [torch.from_numpy(x) for x in _inputs(7, 1, 1, e, a, d)]
+    w_att, b_att, v, _, w_f, b_f = args[3:]
+    packed = da.pack_attention_weights(w_att, b_att, v, w_f, b_f)
+    m1 = packed["m1"]
+    assert m1.dtype == torch.bfloat16 and m1.shape == (a + e, 16)
+    assert m1.is_contiguous() and m1.stride(0) * 2 % 16 == 0
+    bits = lambda t: t.contiguous().view(torch.int16)
+    assert torch.equal(bits(m1[:a, :d].t()), bits(w_att.to(torch.bfloat16)))
+    assert torch.equal(bits(m1[a:, :d].t()), bits(w_f.to(torch.bfloat16)))
+    assert not m1[:, d:].float().any()
+    assert torch.equal(bits(packed["bias"]),
+                       bits(torch.cat([b_att, b_f]).to(torch.bfloat16)))
+    assert torch.equal(bits(packed["v"]), bits(v.to(torch.bfloat16)))
+    td = _tiny(0, 0.0)[2]
+    first = da.attention_weights(td)
+    assert da.attention_weights(td) is first
+    with torch.no_grad():
+        td.watt.add_(1.0)
+    again = da.attention_weights(td)
+    assert again is not first
+    assert torch.equal(again["m1"][:16, :16].t(), td.watt.to(torch.bfloat16))
+
+
+def _packed(args):
+    return da.pack_attention_weights(args[3], args[4], args[5], args[7],
+                                     args[8])
+
+
+@pytest.mark.parametrize("seed,b,p,cluster,clusters", [
+    (0, 1, 1, 16, None), (1, 3, 13, 16, None), (2, 5, 196, 8, None),
+    (3, 7, 9, 1, None), (4, 9, 13, 8, 4), (5, 2, 5, 16, 1)])
+def test_split_softmax_matches_plain_bf16(seed, b, p, cluster, clusters):
+    """The kernel's order of work (per-CTA columns, local softmaxes over
+    position slices, rescaled by exp(m_c - m) and combined) against the
+    plain version with bfloat16 streams, at odd B and P, CTAs without
+    positions included: within 1e-5 + 1e-4 relative (both sum in float32,
+    in other orders)."""
+    args = [torch.from_numpy(x) for x in _inputs(seed, b, p, e=24, a=16)]
+    got = da.fused_attention_gate_split(*args[:3], _packed(args), cluster,
+                                        clusters)
+    want = da.fused_attention_gate_plain(*args, stream_dtype=torch.bfloat16)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed,b,p,cluster", [(3, 1, 9, 16), (4, 5, 13, 8),
+                                              (5, 7, 131, 16)])
+def test_split_softmax_matches_interpret_kernel(seed, b, p, cluster):
+    """The same against the TPU kernel run in interpret mode, with the
+    tolerance of the plain version's test."""
+    args = _inputs(seed, b, p, e=24, a=16)
+    want = j_fused_attention(*_jax_args(args), interpret=True)
+    t = [torch.from_numpy(x) for x in args]
+    got = da.fused_attention_gate_split(*t[:3], _packed(t), cluster)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-5)
+
+
+def test_widths_the_kernel_does_not_take_raise():
+    da.check_widths(512, 512, 512)
+    da.check_widths(16, 24, 12)  # D needs no multiple of 8
+    for (e, a, d), name in (((20, 24, 12), "E=20"), ((16, 12, 12), "A=12"),
+                            ((16, 24, 2000), "D=2000")):
+        with pytest.raises(ValueError, match=name):
+            da.check_widths(e, a, d)
+
+
+def test_phase_clock_counts_points_not_passed_as_no_time():
+    """K3's phase clock: cycles scaled by the global timer; a point CTA 0
+    did not pass (zero) takes no time."""
+    n = da.STAMPS.index("timer_entry")
+    cycles = [1000 * i for i in range(n)]
+    cycles[da.STAMPS.index("scores")] = 0
+    us = da.phase_us(cycles + [5, 5 + 2 * cycles[-1]])  # 2 ns per cycle
+    assert list(us) == list(da.STAMPS[1:n])
+    assert us["scores"] == 0.0 and us["softmax"] == 4.0
+    assert sum(us.values()) == 2 * cycles[-1] / 1e3

@@ -147,33 +147,123 @@ def test_beam_kernel_takes_every_beam_size_up_to_its_limit():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b", [1, 5])
-def test_attention_kernel_matches_plain_version(b):
-    """K3 against its plain version with bfloat16 streams: out and alpha
-    within 1e-5 + 1e-4 relative (both sum in float32, in other orders)."""
+@pytest.mark.parametrize("b,p", [(1, 196), (5, 196), (3, 13)])
+def test_attention_kernel_matches_plain_version(b, p):
+    """K3 against its plain version with bfloat16 streams, at the cluster
+    size the wrapper picks and at 8 and 16: out and alpha within 1e-5 +
+    1e-4 relative (both sum in float32, in other orders), one launch per
+    call, with the decoder's packed weights or without them, and with h
+    in float32."""
     dev = _card()
     from stroke_derenderer_tpu_torch.kernels import decode_attention as da
     from stroke_derenderer_tpu_torch.models.decoder import ATTENTION_WEIGHTS
     dec = _shipped_decoder(torch.bfloat16, dev)
-    enc = _enc(b, torch.bfloat16, dev, 20 + b)
+    enc = _enc(b, torch.bfloat16, dev, 20 + b)[:, :p]
     ep, (h, _) = dec.project_encoding(enc), dec.init_state(enc)
     att_w = [getattr(dec, k) for k in ATTENTION_WEIGHTS]
-    before = da.launch_count
-    out, alpha = da.fused_attention_gate(enc, ep, h, *att_w)
-    assert da.launch_count == before + 1
     want = da.fused_attention_gate_plain(enc, ep, h, *att_w,
                                          stream_dtype=torch.bfloat16)
-    torch.testing.assert_close(out, want[0], rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(alpha, want[1], rtol=1e-4, atol=1e-5)
+    packed = da.attention_weights(dec)
+    for kwargs in ({}, {"packed": packed}, {"packed": packed, "cluster": 8},
+                   {"packed": packed, "cluster": 16}):
+        for hh in (h, h.float()):
+            before = da.launch_count
+            out, alpha = da.fused_attention_gate(enc, ep, hh, *att_w,
+                                                 **kwargs)
+            assert da.launch_count == before + 1
+            torch.testing.assert_close(out, want[0], rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(alpha, want[1], rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.gpu
-def test_fused_attention_greedy_launches_once_per_step():
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_attention_kernel_at_80_rows_matches_float64(cluster):
+    """K3 at B = 80 against its function evaluated in float64 (bfloat16
+    streams, b_v dropped), within 1e-5 + 1e-4 relative. On these inputs the
+    scores lie near -790, so each float32 order of the sums (the kernel's,
+    or the plain version's) is up to ~1.5e-4 relative from the exact value,
+    and two of them can be twice that apart: the exact value is the
+    yardstick here (measured on an H100: the plain version itself misses
+    this bar at one element)."""
+    dev = _card()
+    from stroke_derenderer_tpu_torch.kernels import decode_attention as da
+    from stroke_derenderer_tpu_torch.models.decoder import ATTENTION_WEIGHTS
+    dec = _shipped_decoder(torch.bfloat16, dev)
+    enc = _enc(80, torch.bfloat16, dev, 100)
+    ep, (h, _) = dec.project_encoding(enc), dec.init_state(enc)
+    att_w = [getattr(dec, k) for k in ATTENTION_WEIGHTS]
+    x = [t.to(torch.bfloat16).double() for t in (enc, ep, h, *att_w)]
+    enc64, ep64, h64, w_att, b_att, v, _, w_f, b_f = x
+    alpha = torch.softmax(torch.relu(ep64 + (h64 @ w_att + b_att)[:, None])
+                          @ v, dim=1)
+    out = torch.sigmoid(h64 @ w_f + b_f) * torch.bmm(alpha[:, None],
+                                                     enc64)[:, 0]
+    before = da.launch_count
+    got = da.fused_attention_gate(enc, ep, h, *att_w,
+                                  packed=da.attention_weights(dec),
+                                  cluster=cluster)
+    assert da.launch_count == before + 1
+    for g, w in zip(got, (out, alpha)):
+        torch.testing.assert_close(g.double(), w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_attention_kernel_matches_split_emulation():
+    """The kernel and its emulation on the CPU take the same plan: at a
+    narrow width with more CTAs than positions they agree within the same
+    bar."""
+    dev = _card()
+    from stroke_derenderer_tpu_torch.kernels import decode_attention as da
+    rng = np.random.default_rng(5)
+    b, p, e, a, d = 6, 9, 16, 24, 12
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    args = [f(b, p, e), f(b, p, a), f(b, d), f(d, a), f(a), f(a), f(1),
+            f(d, e), f(e)]
+    cpu = da.fused_attention_gate_split(*args[:3], da.pack_attention_weights(
+        args[3], args[4], args[5], args[7], args[8]), 16)
+    got = da.fused_attention_gate(*(t.to(dev) for t in args), cluster=16)
+    for g, w in zip(got, cpu):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_attention_wrapper_raises_without_fallback():
+    """A width the kernel does not take and a tensor on the CPU beside CUDA
+    ones raise; nothing falls back to the plain version, nothing launches;
+    B = 0 returns empty outputs without a launch."""
+    dev = _card()
+    from stroke_derenderer_tpu_torch.kernels import decode_attention as da
+    rng = np.random.default_rng(6)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(dev)
+    args = [f(2, 9, 20), f(2, 9, 24), f(2, 12), f(12, 24), f(24), f(24),
+            f(1), f(12, 20), f(20)]
+    before = da.launch_count
+    with pytest.raises(ValueError, match="E=20"):
+        da.fused_attention_gate(*args)
+    good = [f(2, 9, 16), args[1], args[2], args[3], args[4], args[5],
+            args[6], f(12, 16), f(16)]
+    for i in range(len(good)):
+        mixed = list(good)
+        mixed[i] = mixed[i].cpu()
+        with pytest.raises(ValueError):
+            da.fused_attention_gate(*mixed)
+    assert da.launch_count == before
+    out, alpha = da.fused_attention_gate(*(t[:0] if t.dim() > 1 and
+                                           t.shape[0] == 2 else t
+                                           for t in good))
+    assert out.shape == (0, 16) and alpha.shape == (0, 9)
+    assert da.launch_count == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_fused_attention_greedy_launches_once_per_step(dtype):
     dev = _card()
     from stroke_derenderer_tpu_torch.kernels import decode_attention as da
     from stroke_derenderer_tpu_torch.models.decoder import greedy_decode
-    dec = _shipped_decoder(torch.bfloat16, dev)
-    enc = _enc(3, torch.bfloat16, dev, 30)
+    dec = _shipped_decoder(getattr(torch, dtype), dev)
+    enc = _enc(3, getattr(torch, dtype), dev, 30)
     before = da.launch_count
     preds = greedy_decode(dec, enc, 40, fused=True)
     is_eos = (preds == 2).cpu()

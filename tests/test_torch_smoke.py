@@ -1,7 +1,8 @@
 """``chip_smoke.py`` rehearsed on the CPU: the card is faked (availability,
 name, events, ``nvidia-smi``), the device is the CPU, and the wrappers of
 K1, K2 and K3 run their plain versions (K3's with bfloat16 streams, as on
-the card) and count a launch. This checks the script's phases and its
+the card) and count a launch; K3's bare launch runs the split-position
+emulation. This checks the script's phases and its
 output contract, not the kernels."""
 
 import json
@@ -77,12 +78,32 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
 
     monkeypatch.setattr(fb, "fused_beam_decode_packed", counted_beam)
 
-    def counted_attention(*args):
+    def counted_attention(*args, packed=None, cluster=None):
         da.launch_count += 1
         return da.fused_attention_gate_plain(*args,
                                              stream_dtype=torch.bfloat16)
 
     monkeypatch.setattr(da, "fused_attention_gate", counted_attention)
+    monkeypatch.setattr(da, "kernel_config", lambda dev, c, p, e, a, d: {
+        "clusters": 132 // c, "smem": 1000, "row_tile": 16, "stages": 2,
+        "threads": 256, "kmax": 2})
+
+    def split_into(enc, enc_proj, h, packed, out, alpha, cluster,
+                   stamps=None):
+        got = da.fused_attention_gate_split(enc, enc_proj, h, packed,
+                                            cluster, 132 // cluster)
+        out.copy_(got[0])
+        alpha.copy_(got[1])
+        if stamps is not None:  # phases of 1, 2, ... microseconds
+            n = da.STAMPS.index("timer_entry")
+            cycles = torch.cumsum(torch.arange(n) * 1000, 0)
+            stamps[:n] = cycles
+            stamps[n:] = torch.tensor([0, int(cycles[-1])])
+
+    monkeypatch.setattr(da, "launch_attention", split_into)
+    monkeypatch.setattr(da, "cluster_probe", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "kernel_ms",
+                        lambda fn, reps=20: chip_smoke.cuda_ms(fn, reps))
     monkeypatch.setattr(
         chip_smoke.subprocess, "run",
         lambda cmd, **k: types.SimpleNamespace(stdout="fake card, 700.00 W\n"))
@@ -129,5 +150,20 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
     assert record["k1_breakdown"]["step_us"] == (22 + 38 + 54) / 3
     assert record["k1_breakdown"]["phase_us"]["scores"] == (4 + 8 + 12) / 3
     launches = [json.loads(x) for x in lines if x.startswith('{"launch"')]
-    assert [(x["launch"], x["barriers_per_step"]) for x in launches] == [
-        ("K1", 4), ("K2", 5)]
+    assert [(x["launch"], x.get("barriers_per_step")) for x in launches] == [
+        ("K1", 4), ("K2", 5), ("K3", None)]
+    # K3: the ragged case, every cluster size timed, the barrier probes.
+    k3 = {c["case"]: c for c in record["k3"]}
+    assert "ragged B=3 P=13" in k3 and k3["ragged B=3 P=13"]["P"] == 13
+    for c in record["k3"][:len(chip_smoke.K3_BATCHES) + 2]:
+        assert set(c["ms_by_cluster"]) == {str(x)
+                                           for x in chip_smoke.K3_CLUSTERS}
+        assert c["wrapper_ms"] > 0 and c["bytes_per_cta"] > 0
+    # The wrapper's choice: 16 CTAs while the rows fit one cluster each
+    # (132 // 16 = 8 clusters faked here), else 8.
+    assert [k3[f"synthetic B={b}"]["C"] for b in (1, 3)] == [16, 16]
+    assert list(k3["golden"]["phase_us"].values()) == [
+        float(i) for i in range(1, da.STAMPS.index("timer_entry"))]
+    assert launches[2]["grid"] == k3["golden"]["G"] * k3["golden"]["C"]
+    assert [b["cluster"] for b in record["cluster_barrier"]] == list(
+        chip_smoke.K3_CLUSTERS)
