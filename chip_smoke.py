@@ -56,13 +56,40 @@ non-zero and prints no result:
    launched once per image that has glyphs (K1 not at all). The golden
    beam strokes' chamfer distance to ``tests/golden/expected_STROKES.json``
    is recorded, not held to a bound.
+8. batch: ``cli.run_batched`` (``--batch``) on the same images, greedy: K1
+   launches once (and K2, K3 not at all) for all their glyphs, the golden
+   mask as in phase 4, the golden strokes within ``STROKES_CHAMFER_PX``
+   (chamfer) of ``tests/golden/expected_STROKES.json``, the masks as phase
+   4's on at least ``BATCH_MASK_AGREE`` of the pixels (the differing pixels
+   and the images whose strokes files are identical are recorded). Then K1
+   against its plain version on the batched encoder sequence (every glyph
+   row, phase 3's bars), its phase clock, and the same rows as one K1
+   launch per image, back to back. The amortized s/image print beside
+   phase 4's.
+9. batch-beam: as phase 8 with ``--decode beam --beam-size 5``: K2 launches
+   once (K1 not at all); K2 at the batched shape against its plain version
+   (phase 5's bars; the plain version, which steps every beam in Python,
+   timed once), its phase clock, and one K2 launch per image.
+10. fused-binarize: ``binarize_images`` with ``fused=True`` (every width
+   group through the device cut, stitch and bit-pack program) against the
+   default mode and against phase 4's masks, each on at least
+   ``BATCH_MASK_AGREE`` of the pixels; both timed.
+11. serve: the HTTP server in this process on 127.0.0.1: /healthz,
+   ``SERVE_CONCURRENT`` concurrent /derender requests (the golden input
+   among them), /binarize, /derender?svg=1, a body that is not a PNG (400)
+   and an unknown path (404). Every reply has its expected status, some
+   batch holds more than one request, K1 launches fewer times than there
+   were /derender requests, the golden strokes are within
+   ``STROKES_CHAMFER_PX``; the stage latencies of /metrics are printed.
 
 K1 and K2 are one cooperative launch each per decode call; phases 3 and 5
 record each launch's grid, its grid barriers per step and the time of one
 grid-wide step, and one line per kernel prints them with the registers and
-spills (K3: its clusters, CTAs per cluster and cluster barriers). Then one JSON line with the kernel table (K1, K2, K3) and, last, one JSON
-line ``{"ok": true, "device": {...}}``. ``--out`` also writes everything to
-a JSON file.
+spills (K3: its clusters, CTAs per cluster and cluster barriers). Then one
+JSON line with each kernel's launches on each path, one with the kernel
+table (K1, K2, K3; launches summed over the paths) and, last, one JSON line
+``{"ok": true, "device": {...}}``. ``--out`` also writes everything to a
+JSON file.
 """
 
 from __future__ import annotations
@@ -99,6 +126,10 @@ K3_CLUSTERS = (8, 16)     # cluster sizes K3 is timed at (the wrapper picks)
 # K3 and its plain version both sum in float32, in other orders.
 K3_ATOL, K3_RTOL = 1e-5, 1e-4
 LIBS = ("fused_decode", "fused_beam", "decode_attention")
+STROKES_CHAMFER_PX = 6.0  # golden strokes, batched and served (as the tests)
+BATCH_MASK_AGREE = 0.9999  # batched or fused masks against per-image ones
+SERVE_CONCURRENT = 8       # concurrent /derender requests of phase 11
+SERVE_WINDOW_S = 0.1       # the server's batching window in phase 11
 
 # H100 SXM published peaks (NVIDIA data sheet), used for bound_ms.
 HBM_BYTES_PER_S = 3.35e12
@@ -320,9 +351,24 @@ def first_difference_gaps(same, gaps) -> float:
     return worst
 
 
-def compare_k2(fb, decoder, seq, dtype, label: str, k: int = BEAM) -> dict:
+def event_ms(fn):
+    """(result, milliseconds) of one call of ``fn``, CUDA events around it."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def compare_k2(fb, decoder, seq, dtype, label: str, k: int = BEAM,
+               plain_once: bool = False) -> dict:
     """K2 at beam size k against its plain version on one encoder sequence
-    batch."""
+    batch. ``plain_once``: the plain version's time is that of the one call
+    the comparison makes (with its gaps), not of a further warm call (the
+    plain version steps B * K rows in Python)."""
     import torch
     enc = seq.to(dtype).contiguous()
     enc_proj = decoder.project_encoding(enc).contiguous()
@@ -331,9 +377,9 @@ def compare_k2(fb, decoder, seq, dtype, label: str, k: int = BEAM) -> dict:
     packed = fb.pack_step_weights(w)
     preds, score, lens = fb.fused_beam_decode_packed(
         enc, enc_proj, h0, c0, w, MAX_LENGTH, k, packed)
-    r_preds, r_score, r_lens, gaps = fb.fused_beam_decode_plain(
-        enc, enc_proj, h0, c0, w, MAX_LENGTH, k, return_gaps=True)
-    torch.cuda.synchronize()
+    (r_preds, r_score, r_lens, gaps), plain_ms = event_ms(
+        lambda: fb.fused_beam_decode_plain(enc, enc_proj, h0, c0, w,
+                                           MAX_LENGTH, k, return_gaps=True))
     same = preds == r_preds                          # (B, K, T)
     decoded = (preds != 0) | (r_preds != 0)
     image_same = same.flatten(1).all(1) & (lens == r_lens).all(1)
@@ -354,12 +400,82 @@ def compare_k2(fb, decoder, seq, dtype, label: str, k: int = BEAM) -> dict:
         rec["ok"] = rec["agree"] >= BF16_AGREE
     rec["ms"] = cuda_ms(lambda: fb.fused_beam_decode_packed(
         enc, enc_proj, h0, c0, w, MAX_LENGTH, k, packed), reps=3)
-    rec["plain_ms"] = cuda_ms(lambda: fb.fused_beam_decode_plain(
-        enc, enc_proj, h0, c0, w, MAX_LENGTH, k), reps=1)
+    rec["plain_ms"] = plain_ms if plain_once else cuda_ms(
+        lambda: fb.fused_beam_decode_plain(enc, enc_proj, h0, c0, w,
+                                           MAX_LENGTH, k), reps=1)
     rec.update(k2_cost(enc, enc_proj, w, lens, k))
     rec.update(launch_shape(fb, "fused_beam", enc, enc_proj, w, k, rec["ms"],
                             rec["steps_max"]))
     return rec
+
+
+def per_image_launches_ms(fd, fb, decoder, seq, inv, counts,
+                          k: int) -> float:
+    """The rows of the batched sequence ``seq`` (ink order; ``inv`` gives
+    image order) as one K1 (k = 1) or K2 launch per image with glyphs, back
+    to back, bfloat16: what the per-image path spends in the kernel for
+    the same rows, timed as one call with CUDA events after a warm-up."""
+    import torch
+    w = decoder.weights(torch.bfloat16)
+    packed = fd.pack_step_weights(w)
+    args = []
+    for enc in torch.split(seq[torch.from_numpy(inv).to(seq.device)],
+                           [n for n in counts if n]):
+        enc = enc.to(torch.bfloat16).contiguous()
+        h0, c0 = (t.contiguous() for t in decoder.init_state(enc))
+        args.append((enc, decoder.project_encoding(enc).contiguous(), h0,
+                     c0))
+    if k == 1:
+        return cuda_ms(lambda: [fd.fused_greedy_decode_packed(
+            *a, w, MAX_LENGTH, packed) for a in args], reps=1)
+    return cuda_ms(lambda: [fb.fused_beam_decode_packed(
+        *a, w, MAX_LENGTH, k, packed) for a in args], reps=1)
+
+
+def batch_vs_per_image(fd, estimator, masks, crops, seq, inv) -> dict:
+    """Where the batched path's strokes part from the per-image path's on
+    the same masks: each image's crops built alone (``gather_crops``) and
+    encoded alone, against the rows of the batched crops and encoder
+    output; then K1 (one launch each, rows are independent in K1) on both
+    encoder outputs, bfloat16 as on the path."""
+    import torch
+    from stroke_derenderer_tpu_torch.models.encoder import encode_postprocess
+    from stroke_derenderer_tpu_torch.ops.device_partition import (
+        PartitionPlan, gather_crops, plan_partitions,
+    )
+    cfg = estimator.config
+    dev = crops.device
+    alone_crops, alone_seq = [], []
+    for m in masks:
+        plan = plan_partitions(m, cfg.margin, cfg.image_size)
+        if plan is None:
+            continue
+        c = gather_crops(torch.from_numpy(plan.gid_img).to(dev), tuple(
+            torch.from_numpy(getattr(plan, k).copy()).to(dev)
+            for k in PartitionPlan.COORD_KEYS))
+        alone_crops.append(c)
+        alone_seq.append(encode_postprocess(
+            estimator.encoder(estimator._normalize_raw(c)),
+            cfg.encode_image_size))
+    order = torch.from_numpy(inv).to(dev)
+    a_crops, b_crops = torch.cat(alone_crops), crops[order]
+    a_seq, b_seq = torch.cat(alone_seq), seq[order]
+    a_tok = fd.fused_greedy_decode(estimator.decoder, a_seq.to(
+        estimator.compute_dtype), MAX_LENGTH)
+    b_tok = fd.fused_greedy_decode(estimator.decoder, b_seq.to(
+        estimator.compute_dtype), MAX_LENGTH)
+    crops_same = (a_crops == b_crops).flatten(1).all(1)
+    seq_same = (a_seq == b_seq).flatten(1).all(1)
+    tok_same = (a_tok == b_tok).all(1)
+    return {"rows": int(a_crops.shape[0]),
+            "crops_identical_rows": int(crops_same.sum()),
+            "crops_differing_texels": int((a_crops != b_crops).sum()),
+            "encoder_identical_rows": int(seq_same.sum()),
+            "encoder_max_abs_diff": float((a_seq.float()
+                                           - b_seq.float()).abs().max()),
+            "tokens_identical_rows": int(tok_same.sum()),
+            "tokens_identical_rows_where_encoder_identical": int(
+                (tok_same & seq_same).sum())}
 
 
 PHASES = ("scores", "attend", "lstm", "head", "select")
@@ -567,33 +683,40 @@ def compare_fused_greedy(da, decoder, seq, dtype) -> dict:
     return rec
 
 
-def drive_cli(cli, read_png, imgs, binarizer, estimator, counters) -> dict:
-    """``cli.run`` on the images with every module's ``launch_count`` in
-    ``counters`` set to 0 just before and read just after; the checks of
-    phases 4 and 7."""
+def drive_cli(cli, read_png, imgs, binarizer, estimator, counters,
+              runner=None) -> tuple[dict, dict]:
+    """``runner`` (``cli.run``, or ``cli.run_batched``) on the images with
+    every module's ``launch_count`` in ``counters`` set to 0 just before
+    and read just after; the checks of phases 4, 7, 8 and 9. Returns the
+    record and, per image, its mask (bool) and strokes as written."""
     import numpy as np
     import torch
+    runner = runner or cli.run
+    outputs = {}
     with tempfile.TemporaryDirectory() as out:
         for mod in counters.values():
             mod.launch_count = 0
         captured = io.StringIO()
         t_run = time.monotonic()
         with contextlib.redirect_stdout(captured):
-            done = cli.run(imgs, binarizer, estimator, out)
+            done = runner(imgs, binarizer, estimator, out)
         torch.cuda.synchronize()
         t_run = time.monotonic() - t_run
         launches = {name: mod.launch_count for name, mod in counters.items()}
         text = captured.getvalue()
         if done != len(imgs):
             print(text)
-            raise SystemExit(f"cli.run processed {done} of {len(imgs)} images")
+            raise SystemExit(f"{runner.__name__} processed {done} of "
+                             f"{len(imgs)} images")
         with_glyphs = 0
         for _, name in imgs:
             for suffix in ("_BINARIZED.png", "_STROKES.json"):
                 if not (Path(out) / f"{name}{suffix}").exists():
                     raise SystemExit(f"missing output {name}{suffix}")
-            with_glyphs += bool(read_png(
-                Path(out) / f"{name}_BINARIZED.png").any())
+            mask = read_png(Path(out) / f"{name}_BINARIZED.png")[:, :, 0] > 0
+            outputs[name] = (mask, json.loads(
+                (Path(out) / f"{name}_STROKES.json").read_text()))
+            with_glyphs += bool(mask.any())
         got = read_png(Path(out) / "golden_input_BINARIZED.png")
         want = read_png(GOLDEN / "expected_BINARIZED.png")
         if got.shape != want.shape:
@@ -617,7 +740,128 @@ def drive_cli(cli, read_png, imgs, binarizer, estimator, counters) -> dict:
     print(json.dumps(rec), flush=True)
     if mask_agree < MASK_AGREE:
         raise SystemExit(f"golden mask agreement {mask_agree} < {MASK_AGREE}")
+    return rec, outputs
+
+
+def mask_diff(masks: dict, ref: dict) -> dict:
+    """Pixels of ``masks`` (name -> bool mask) that differ from the masks
+    of the same images in ``ref``, over all of them."""
+    differ = total = 0
+    for name, mask in masks.items():
+        if mask.shape != ref[name].shape:
+            raise SystemExit(f"{name}: mask shape {mask.shape} != "
+                             f"{ref[name].shape}")
+        differ += int((mask != ref[name]).sum())
+        total += mask.size
+    return {"differing_px": differ, "px": total,
+            "agree": 1.0 - differ / total, "images": len(masks)}
+
+
+def against_per_image(outputs: dict, per_image: dict) -> dict:
+    """A batched run's outputs (name -> (mask, strokes)) against the
+    per-image run's: :func:`mask_diff` of the masks, and how many images'
+    strokes files are identical."""
+    rec = mask_diff({n: m for n, (m, _) in outputs.items()},
+                    {n: m for n, (m, _) in per_image.items()})
+    rec["strokes_identical"] = sum(
+        strokes == per_image[n][1] for n, (_, strokes) in outputs.items())
     return rec
+
+
+def http_call(port: int, method: str, path: str, body=None):
+    """One request to the server on 127.0.0.1 with ``http.client`` (no
+    proxy is consulted) -> (status, body)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def drive_server(serve, encode_png, imgs, binarizer, estimator,
+                 counters) -> dict:
+    """The port's server in this process (``BatchWorker`` and a
+    ``ThreadingHTTPServer`` on 127.0.0.1, any free port): /healthz,
+    ``SERVE_CONCURRENT`` concurrent /derender requests (the golden input
+    first), one /binarize, one /derender?svg=1, one body that is not a PNG,
+    one unknown path, then /metrics. Counts are set to 0 just before the
+    requests and read just after. The server and its worker are stopped on
+    the way out."""
+    import threading
+    from http.server import ThreadingHTTPServer
+    import torch
+    worker = serve.BatchWorker(binarizer, estimator,
+                               window_s=SERVE_WINDOW_S)
+    worker.start()
+    srv = ThreadingHTTPServer(("127.0.0.1", 0),
+                              serve.make_handler(worker, timeout_s=600))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    port = srv.server_port
+    bodies = [encode_png(img) for img, _ in imgs[:SERVE_CONCURRENT]]
+    try:
+        for mod in counters.values():
+            mod.launch_count = 0
+        t_run = time.monotonic()
+        status = {"healthz": http_call(port, "GET", "/healthz")[0]}
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            replies = list(pool.map(lambda b: http_call(
+                port, "POST", "/derender", b), bodies))
+        status["derender"] = [r[0] for r in replies]
+        status["binarize"] = http_call(port, "POST", "/binarize",
+                                       bodies[1])[0]
+        svg_status, svg_body = http_call(port, "POST", "/derender?svg=1",
+                                         bodies[0])
+        status["derender_svg"] = svg_status
+        status["bad_body"] = http_call(port, "POST", "/binarize",
+                                       b"not a png")[0]
+        status["unknown_path"] = http_call(port, "POST", "/nope", b"x")[0]
+        torch.cuda.synchronize()
+        t_run = time.monotonic() - t_run
+        launches = {name: mod.launch_count for name, mod in counters.items()}
+        metrics = json.loads(http_call(port, "GET", "/metrics")[1])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        worker.close()
+        worker.join(60)
+        thread.join(60)
+    if worker.is_alive() or thread.is_alive():
+        raise SystemExit("the server's threads did not stop")
+    want = {"healthz": 200, "derender": [200] * len(bodies), "binarize": 200,
+            "derender_svg": 200, "bad_body": 400, "unknown_path": 404}
+    if status != want:
+        raise SystemExit(f"server replies {status}, expected {want}")
+    golden = json.loads(replies[0][1])
+    svg = json.loads(svg_body)
+    expected = json.loads((GOLDEN / "expected_STROKES.json").read_text())
+    return {"requests": 5 + len(bodies), "derender_requests": len(bodies) + 1,
+            "launches": launches, "run_s": t_run,
+            "batch_size_hist": metrics["batch_size_hist"],
+            "batches": metrics["batches"], "latency_s": metrics["latency_s"],
+            "golden_strokes_chamfer_px": chamfer(golden["strokes"], expected),
+            "svg_ok": svg["svg"].startswith("<svg") and bool(svg["strokes"]),
+            # The golden input alone, against it in the concurrent batch.
+            "svg_strokes_as_in_batch": svg["strokes"] == golden["strokes"]}
+
+
+def check_batched(phase: str, rec: dict, launches: dict) -> None:
+    """The bars of phases 8 and 9: one launch of the path's kernel and none
+    of the others, the golden strokes near the expected ones, the masks
+    as the per-image run's."""
+    if rec["launches"] != launches:
+        raise SystemExit(f"{phase}: launches {rec['launches']}, expected "
+                         f"{launches}")
+    if rec["golden_strokes_chamfer_px"] > STROKES_CHAMFER_PX:
+        raise SystemExit(f"{phase}: golden strokes chamfer "
+                         f"{rec['golden_strokes_chamfer_px']} px > "
+                         f"{STROKES_CHAMFER_PX}")
+    if rec["per_image"]["agree"] < BATCH_MASK_AGREE:
+        raise SystemExit(f"{phase}: masks against the per-image run "
+                         f"{rec['per_image']}")
 
 
 def chamfer(a, b) -> float:
@@ -652,9 +896,9 @@ def main(argv=None) -> int:
         return 1
     import numpy as np
 
-    from stroke_derenderer_tpu_torch import cli
+    from stroke_derenderer_tpu_torch import cli, serve
     from stroke_derenderer_tpu_torch.device import resolve_device
-    from stroke_derenderer_tpu_torch.io import load_image, read_png
+    from stroke_derenderer_tpu_torch.io import encode_png, load_image, read_png
     from stroke_derenderer_tpu_torch.kernels import build
     from stroke_derenderer_tpu_torch.kernels import decode_attention as da
     from stroke_derenderer_tpu_torch.kernels import fused_beam as fb
@@ -693,7 +937,8 @@ def main(argv=None) -> int:
 
     # 3. K1 against its plain version ---------------------------------------
     t0 = time.monotonic()
-    binarizer, estimator = cli.initialize_sessions(MODELS, device=dev)
+    binarizer, estimator = cli.initialize_sessions(
+        MODELS, device=dev, se_overrides={"max_length": MAX_LENGTH})
     decoder = estimator.decoder
     checks = []
     seqs = {}
@@ -749,7 +994,8 @@ def main(argv=None) -> int:
     if len(imgs) != len(inputs):
         raise SystemExit(f"loaded {len(imgs)} of {len(inputs)} inputs")
     counters = {"K1": fd, "K2": fb, "K3": da}
-    main_rec = drive_cli(cli, read_png, imgs, binarizer, estimator, counters)
+    main_rec, main_out = drive_cli(cli, read_png, imgs, binarizer, estimator,
+                                   counters)
     record["main"] = main_rec
     launches = main_rec["launches"]["K1"]
     if launches == 0 or launches != main_rec["images_with_glyphs"]:
@@ -835,8 +1081,8 @@ def main(argv=None) -> int:
         MODELS, device=dev, se_overrides={"decode": "beam",
                                           "beam_size": BEAM,
                                           "max_length": MAX_LENGTH})
-    beam_rec = drive_cli(cli, read_png, imgs, binarizer, beam_estimator,
-                         counters)
+    beam_rec, _ = drive_cli(cli, read_png, imgs, binarizer, beam_estimator,
+                            counters)
     record["main_beam"] = beam_rec
     beam_launches = beam_rec["launches"]["K2"]
     if (beam_launches == 0
@@ -849,6 +1095,165 @@ def main(argv=None) -> int:
     _phase("main-beam", t0, f"{len(imgs)} images, {beam_launches} K2 "
            f"launches, golden beam strokes chamfer "
            f"{beam_rec['golden_strokes_chamfer_px']:.3f} px")
+
+    # 8. cross-image batch, greedy ------------------------------------------
+    t0 = time.monotonic()
+    batch_rec, batch_out = drive_cli(cli, read_png, imgs, binarizer,
+                                     estimator, counters, cli.run_batched)
+    batch_rec["per_image"] = against_per_image(batch_out, main_out)
+    record["batch"] = batch_rec
+    check_batched("batch", batch_rec, {"K1": 1, "K2": 0, "K3": 0})
+    print(json.dumps({"batched_s_per_image": {
+        k: batch_rec[k] for k in ("binarize_s_per_image",
+                                  "strokes_s_per_image")},
+        "per_image_s_per_image": {
+        k: main_rec[k] for k in ("binarize_s_per_image",
+                                 "strokes_s_per_image")}}), flush=True)
+    batch_k1 = []
+    with torch.inference_mode():
+        batch_masks = [batch_out[name][0] for _, name in imgs]
+        crops, batch_inv, _, batch_counts = estimator._gather_batch(
+            batch_masks)
+        seqs["batched"] = encode_postprocess(
+            estimator.encoder(estimator._normalize_raw(crops)),
+            estimator.config.encode_image_size)
+        batch_rec["rows_against_alone"] = batch_vs_per_image(
+            fd, estimator, batch_masks, crops, seqs["batched"], batch_inv)
+        del crops
+        print(json.dumps({"rows_against_alone": batch_rec[
+            "rows_against_alone"]}), flush=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            rec = compare_k1(fd, decoder, seqs["batched"], dtype, "batched")
+            rec["step_us"] = rec["step_ms"] * 1e3
+            batch_k1.append(rec)
+            print(json.dumps({k: rec[k] for k in (
+                "case", "dtype", "B", "agree", "rows_identical", "ok", "ms",
+                "plain_ms", "bound_ms", "bound_by", "stream_bound_ms",
+                "steps_max", "steps_sum", "step_us", "grid")}
+                | ({"max_gap": rec["max_gap_at_first_difference"]}
+                   if "max_gap_at_first_difference" in rec else {})),
+                flush=True)
+        record["k1_batched_breakdown"] = step_breakdown(
+            fd, "fused_decode", decoder, seqs["batched"], torch.bfloat16, 1)
+        batch_rec["k1_ms"] = {"one_launch": batch_k1[1]["ms"],
+                              "per_image_launches": per_image_launches_ms(
+                                  fd, fb, decoder, seqs["batched"],
+                                  batch_inv, batch_counts, 1)}
+    print(json.dumps(record["k1_batched_breakdown"]), flush=True)
+    print(json.dumps({"k1_ms_bfloat16": batch_rec["k1_ms"]}), flush=True)
+    record["k1_batched"] = batch_k1
+    bad = [c for c in batch_k1 if not c["ok"]]
+    if bad:
+        raise SystemExit(f"K1 at the batched shape disagrees with its plain "
+                         f"version: {bad}")
+    _phase("batch", t0, f"{len(imgs)} images, one K1 launch over "
+           f"{seqs['batched'].shape[0]} glyphs, masks against per-image "
+           f"{batch_rec['per_image']['agree']:.6f} "
+           f"({batch_rec['per_image']['differing_px']} px differ), golden "
+           f"strokes chamfer {batch_rec['golden_strokes_chamfer_px']:.3f} px")
+
+    # 9. cross-image batch, beam --------------------------------------------
+    t0 = time.monotonic()
+    bbeam_rec, bbeam_out = drive_cli(cli, read_png, imgs, binarizer,
+                                     beam_estimator, counters,
+                                     cli.run_batched)
+    bbeam_rec["per_image"] = against_per_image(bbeam_out, main_out)
+    record["batch_beam"] = bbeam_rec
+    check_batched("batch-beam", bbeam_rec, {"K1": 0, "K2": 1, "K3": 0})
+    batch_k2 = []
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            rec = compare_k2(fb, decoder, seqs["batched"], dtype, "batched",
+                             plain_once=True)
+            rec["step_us"] = rec["step_ms"] * 1e3
+            batch_k2.append(rec)
+            print(json.dumps({k: rec[k] for k in (
+                "case", "dtype", "B", "K", "agree", "images_identical", "ok",
+                "ms", "plain_ms", "bound_ms", "bound_by", "stream_bound_ms",
+                "steps_max", "steps_sum", "step_us", "grid",
+                "max_gap_at_first_difference", "score_max_rel_err")
+                if k in rec}), flush=True)
+        record["k2_batched_breakdown"] = step_breakdown(
+            fd, "fused_beam", decoder, seqs["batched"], torch.bfloat16, BEAM)
+        bbeam_rec["k2_ms"] = {"one_launch": batch_k2[1]["ms"],
+                              "per_image_launches": per_image_launches_ms(
+                                  fd, fb, decoder, seqs["batched"],
+                                  batch_inv, batch_counts, BEAM)}
+    print(json.dumps(record["k2_batched_breakdown"]), flush=True)
+    print(json.dumps({"k2_ms_bfloat16": bbeam_rec["k2_ms"]}), flush=True)
+    record["k2_batched"] = batch_k2
+    bad = [c for c in batch_k2 if not c["ok"]]
+    if bad:
+        raise SystemExit(f"K2 at the batched shape disagrees with its plain "
+                         f"version: {bad}")
+    _phase("batch-beam", t0, f"{len(imgs)} images, one K2 launch over "
+           f"{seqs['batched'].shape[0] * BEAM} beams, golden strokes chamfer "
+           f"{bbeam_rec['golden_strokes_chamfer_px']:.3f} px")
+
+    # 10. fused binarize ------------------------------------------------------
+    t0 = time.monotonic()
+    raw = [img for img, _ in imgs]
+    fused_calls = []
+    fused_batch = binarizer._fused_batch
+    binarizer._fused_batch = lambda b, plan: (
+        fused_calls.append(len(b)) or fused_batch(b, plan))
+    try:
+        default, default_ms = event_ms(lambda: binarizer.binarize_images(raw))
+        calls_default = list(fused_calls)
+        binarizer.fused = True
+        fused, fused_ms = event_ms(lambda: binarizer.binarize_images(raw))
+    finally:
+        binarizer.fused = False
+        del binarizer._fused_batch
+    as_masks = lambda bins: {name: b[:, :, 0] > 0
+                             for b, (_, name) in zip(bins, imgs)}
+    per_image = {n: m for n, (m, _) in main_out.items()}
+    fused_rec = {
+        "images": len(imgs), "default_ms": default_ms, "fused_ms": fused_ms,
+        "fused_program_calls": {"default": len(calls_default),
+                                "fused": len(fused_calls) - len(
+                                    calls_default)},
+        "fused_program_images": {"default": sum(calls_default),
+                                 "fused": sum(fused_calls)
+                                 - sum(calls_default)},
+        "fused_vs_default": mask_diff(as_masks(fused), as_masks(default)),
+        "fused_vs_per_image": mask_diff(as_masks(fused), per_image),
+        "default_vs_per_image": mask_diff(as_masks(default), per_image)}
+    record["fused_binarize"] = fused_rec
+    print(json.dumps(fused_rec), flush=True)
+    worst = min(fused_rec[k]["agree"] for k in (
+        "fused_vs_default", "fused_vs_per_image", "default_vs_per_image"))
+    if worst < BATCH_MASK_AGREE or fused_rec["fused_program_images"][
+            "fused"] != len(imgs):
+        raise SystemExit(f"fused binarize: {fused_rec}")
+    _phase("fused-binarize", t0, f"{len(imgs)} images through the device "
+           f"cut and stitch, agreement >= {worst:.6f}")
+
+    # 11. the HTTP server ----------------------------------------------------
+    t0 = time.monotonic()
+    serve_rec = drive_server(serve, encode_png, imgs, binarizer, estimator,
+                             counters)
+    record["serve"] = serve_rec
+    print(json.dumps(serve_rec), flush=True)
+    biggest = max(int(k) for k in serve_rec["batch_size_hist"])
+    k1_served = serve_rec["launches"]["K1"]
+    if (biggest < 2 or not 0 < k1_served < serve_rec["derender_requests"]
+            or not serve_rec["svg_ok"] or serve_rec[
+                "golden_strokes_chamfer_px"] > STROKES_CHAMFER_PX):
+        raise SystemExit(f"server: {serve_rec}")
+    lat = serve_rec["latency_s"]
+    _phase("serve", t0, f"{serve_rec['requests']} requests answered, "
+           f"batches {serve_rec['batch_size_hist']}, {k1_served} K1 "
+           f"launches for {serve_rec['derender_requests']} /derender; "
+           f"binarize p50/p90 {lat['binarize']['p50']}/"
+           f"{lat['binarize']['p90']} s, strokes "
+           f"{lat['strokes']['p50']}/{lat['strokes']['p90']} s")
+    launches_by_path = {
+        "K1": {"main": launches, "batch": batch_rec["launches"]["K1"],
+               "serve": k1_served},
+        "K2": {"main-beam": beam_launches,
+               "batch-beam": bbeam_rec["launches"]["K2"]},
+        "K3": {"greedy_decode(fused=True)": None}}
 
     # kernel table and result ---------------------------------------------
     def row(name, src, replaces, launches_, rec, err):
@@ -879,18 +1284,23 @@ def main(argv=None) -> int:
                           "kernels"]}))
     fused_entry = pick(k3_checks, "golden, greedy_decode(fused=True)",
                        "bfloat16")
+    launches_by_path["K3"]["greedy_decode(fused=True)"] = fused_entry[
+        "k3_launches"]
+    print(json.dumps({"launches_by_path": launches_by_path}))
     # Tokens are integers: for K1 and K2 max_abs_err is the largest share of
     # float32 token positions that differ from the plain version.
     kernels = [
         row("K1 fused greedy decode", "fused_decode.cu",
-            "stroke_derenderer_tpu/kernels/fused_decode.py:251", launches,
+            "stroke_derenderer_tpu/kernels/fused_decode.py:251",
+            sum(launches_by_path["K1"].values()),
             pick(checks, "golden", "bfloat16"),
-            max(1.0 - c["agree"] for c in checks
+            max(1.0 - c["agree"] for c in checks + batch_k1
                 if c["dtype"] == "float32")),
         row("K2 fused beam decode", "fused_beam.cu",
-            "stroke_derenderer_tpu/kernels/fused_beam.py:218", beam_launches,
+            "stroke_derenderer_tpu/kernels/fused_beam.py:218",
+            sum(launches_by_path["K2"].values()),
             pick(k2_checks, "golden", "bfloat16"),
-            max(1.0 - c["agree"] for c in k2_checks
+            max(1.0 - c["agree"] for c in k2_checks + batch_k2
                 if c.get("dtype") == "float32")),
         row("K3 fused attention + gate", "decode_attention.cu",
             "stroke_derenderer_tpu/kernels/decode_attention.py:109",

@@ -2,13 +2,18 @@
 
     python -m stroke_derenderer_tpu_torch.cli -models models_demo \
         -input DIR --output DIR [--device cuda|cpu] \
-        [--decode greedy|beam] [--beam-size K]
+        [--decode greedy|beam] [--beam-size K] [--batch] [--fused] \
+        [--no-strokes] [--svg]
 
 For every PNG in the input folder: binarize, save ``<name>_BINARIZED.png``,
 estimate strokes, save ``<name>_STROKES.json`` rescaled to the input's
-height, with the same timing prints. A failure on one image prints
-``[error]`` and the run goes on; :func:`run` returns how many images went
-through. Runs on the card unless ``--device cpu`` is given.
+height (and ``<name>_STROKES.svg`` with ``--svg``), with the same timing
+prints. :func:`run` goes image by image: a failure on one image prints
+``[error]`` and the run goes on, and it returns how many images went
+through. ``--batch`` takes :func:`run_batched` instead: every image's tiles
+in one device batch and every image's glyphs in one, the same files, and
+the prints give the amortized time per image. Runs on the card unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ from pathlib import Path
 import numpy as np
 
 from stroke_derenderer_tpu_torch.config import BinarizerConfig, StrokesConfig
-from stroke_derenderer_tpu_torch.io import load_image, save_image, save_json
+from stroke_derenderer_tpu_torch.io import (
+    load_image, save_image, save_json, save_svg,
+)
 from stroke_derenderer_tpu_torch.ops.normalize import minmax_normalize_np
 from stroke_derenderer_tpu_torch.ops.strokes import strokes_to_json
 from stroke_derenderer_tpu_torch.pipeline.binarize import Binarizer
@@ -44,24 +51,40 @@ def parse_args(argv=None):
                              "greedy; the reference is greedy-only).")
     parser.add_argument("--beam-size", type=int, default=None,
                         help="Beam width for --decode beam.")
+    parser.add_argument("--batch", action="store_true",
+                        help="Throughput mode: one device batch for every "
+                             "image's tiles and one for every image's "
+                             "glyphs; amortized timing prints.")
+    parser.add_argument("--fused", action="store_true",
+                        help="Binarize with the tiles cut and stitched on "
+                             "the device.")
+    parser.add_argument("--no-strokes", action="store_true",
+                        help="Binarize only.")
+    parser.add_argument("--svg", action="store_true",
+                        help="Also write <name>_STROKES.svg.")
     return parser.parse_args(argv)
 
 
 def initialize_sessions(folderpath, device=None,
-                        se_overrides: dict | None = None):
+                        se_overrides: dict | None = None,
+                        fused: bool = False,
+                        bin_overrides: dict | None = None):
     """Both pipelines from a model directory: the flax msgpack weights
     ``binarizer``, ``strokes_encoder`` and ``strokes_decoder``, and the
     config JSONs, whose entries override the defaults. ``se_overrides``
-    are ``StrokesConfig`` fields that win over the config JSON (the
-    ``--decode`` and ``--beam-size`` flags)."""
+    and ``bin_overrides`` are ``StrokesConfig`` and ``BinarizerConfig``
+    fields that win over the config JSON (``--decode``, ``--beam-size``);
+    ``fused`` is the binarizer's mode (``--fused``)."""
     folder = Path(folderpath)
 
     def _opt(name):
         return folder / name if (folder / name).exists() else None
 
-    binarizer = Binarizer(
-        BinarizerConfig.from_json(_opt("configs_binarizer.json")),
-        folder / "binarizer.msgpack", device=device)
+    bin_cfg = BinarizerConfig.from_json(_opt("configs_binarizer.json"))
+    if bin_overrides:
+        bin_cfg = dataclasses.replace(bin_cfg, **bin_overrides)
+    binarizer = Binarizer(bin_cfg, folder / "binarizer.msgpack",
+                          device=device, fused=fused)
     se_cfg = StrokesConfig.from_json(_opt("configs_strokes.json"))
     if se_overrides:
         se_cfg = dataclasses.replace(se_cfg, **se_overrides)
@@ -72,10 +95,28 @@ def initialize_sessions(folderpath, device=None,
     return binarizer, estimator
 
 
-def run(imgs, binarizer: Binarizer, estimator: StrokeEstimator,
-        output_folder) -> int:
-    """Per image: binarize -> save -> estimate strokes -> rescale -> save.
-    Returns the number of images processed."""
+def _save_strokes(out_dir: Path, filename: str, img, stroke_list,
+                  ratio: float, svg: bool) -> str:
+    st_path = str(out_dir / f"{filename}_STROKES.json")
+    save_json(strokes_to_json(stroke_list, scale=ratio), st_path)
+    if svg:
+        save_svg(stroke_list, out_dir / f"{filename}_STROKES.svg",
+                 size=(img.shape[1], img.shape[0]), scale=ratio)
+    return st_path
+
+
+def _save_mask(out_dir: Path, filename: str, mask) -> str:
+    bin_path = str(out_dir / f"{filename}_BINARIZED.png")
+    save_image(minmax_normalize_np(mask.astype(np.uint8)), bin_path,
+               grayscale=True)
+    return bin_path
+
+
+def run(imgs, binarizer: Binarizer, estimator: StrokeEstimator | None,
+        output_folder, strokes: bool = True, svg: bool = False) -> int:
+    """Per image: binarize -> save -> estimate strokes -> rescale -> save
+    (strokes only with ``strokes`` and an estimator; an SVG beside the JSON
+    with ``svg``). Returns the number of images processed."""
     out_dir = Path(output_folder)
     out_dir.mkdir(parents=True, exist_ok=True)
     done = 0
@@ -86,23 +127,54 @@ def run(imgs, binarizer: Binarizer, estimator: StrokeEstimator,
             img_bin = binarizer.binarize_image(img)
             mask = img_bin[:, :, 0] > (255 * binarizer.config.bin_thr)
             comp_bin_time = round(time.time() - start_bin, 4)
-            bin_path = str(out_dir / f"{filename}_BINARIZED.png")
-            save_image(minmax_normalize_np(mask.astype(np.uint8)), bin_path,
-                       grayscale=True)
+            bin_path = _save_mask(out_dir, filename, mask)
             print(f"{filename} took {comp_bin_time} seconds to binarize. "
                   f"Result is saved to {bin_path}")
-            ratio = height / img_bin.shape[0]
-            start_se = time.time()
-            stroke_list = estimator.process_image(mask)
-            comp_se_time = round(time.time() - start_se, 4)
-            st_path = str(out_dir / f"{filename}_STROKES.json")
-            save_json(strokes_to_json(stroke_list, scale=ratio), st_path)
-            print(f"{filename} took {comp_se_time} seconds to estimate "
-                  f"strokes. Result is saved to {st_path}")
+            if strokes and estimator is not None:
+                ratio = height / img_bin.shape[0]
+                start_se = time.time()
+                stroke_list = estimator.process_image(mask)
+                comp_se_time = round(time.time() - start_se, 4)
+                st_path = _save_strokes(out_dir, filename, img, stroke_list,
+                                        ratio, svg)
+                print(f"{filename} took {comp_se_time} seconds to estimate "
+                      f"strokes. Result is saved to {st_path}")
             done += 1
         except Exception as exc:  # one bad image does not stop the batch
             print(f"[error] {filename}: {type(exc).__name__}: {exc}")
     return done
+
+
+def run_batched(imgs, binarizer: Binarizer,
+                estimator: StrokeEstimator | None, output_folder,
+                strokes: bool = True, svg: bool = False) -> int:
+    """Throughput mode: one device batch for every image's tiles
+    (``binarize_images``), one for every image's glyphs
+    (``process_images``). The same files as :func:`run`; the prints give
+    the amortized time per image. A failure fails the whole batch."""
+    out_dir = Path(output_folder)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if not imgs:
+        return 0
+    t0 = time.time()
+    bins = binarizer.binarize_images([img for img, _ in imgs])
+    masks = [b[:, :, 0] > (255 * binarizer.config.bin_thr) for b in bins]
+    t_bin = round((time.time() - t0) / len(imgs), 4)
+    for (img, filename), mask in zip(imgs, masks):
+        bin_path = _save_mask(out_dir, filename, mask)
+        print(f"{filename} took {t_bin} seconds to binarize (amortized). "
+              f"Result is saved to {bin_path}")
+    if strokes and estimator is not None:
+        t0 = time.time()
+        all_strokes = estimator.process_images(masks)
+        t_se = round((time.time() - t0) / len(imgs), 4)
+        for (img, filename), mask, stroke_list in zip(imgs, masks,
+                                                      all_strokes):
+            st_path = _save_strokes(out_dir, filename, img, stroke_list,
+                                    img.shape[0] / mask.shape[0], svg)
+            print(f"{filename} took {t_se} seconds to estimate strokes "
+                  f"(amortized). Result is saved to {st_path}")
+    return len(imgs)
 
 
 def load_images(img_filepaths):
@@ -126,8 +198,11 @@ def entrypoint(argv=None) -> int:
     if args.beam_size:
         se_overrides["beam_size"] = args.beam_size
     binarizer, estimator = initialize_sessions(
-        args.models, device=args.device, se_overrides=se_overrides)
-    run(imgs, binarizer, estimator, args.output)
+        args.models, device=args.device, se_overrides=se_overrides,
+        fused=args.fused)
+    runner = run_batched if args.batch else run
+    runner(imgs, binarizer, estimator, args.output,
+           strokes=not args.no_strokes, svg=args.svg)
     return 0
 
 

@@ -41,6 +41,12 @@ class BinarizerConfig:
     quant: str = "none"
     # Tile batches are padded to a multiple of this.
     batch_bucket: int = 8
+    # binarize_images: width groups of at least this many images take the
+    # batched fused program (device cut and stitch, bit-packed masks).
+    # 0 disables.
+    fused_batch_min: int = 3
+    # Batch calls are split into this many sub-dispatches.
+    io_chunks: int = 1
 
     def __post_init__(self):
         object.__setattr__(self, "features", tuple(self.features))
@@ -77,6 +83,8 @@ class StrokesConfig:
     compute_dtype: str = "bfloat16"
     quant: str = "none"
     device_partition: bool = True
+    # process_images: the batch is split into this many sub-dispatches.
+    io_chunks: int = 1
 
     def __post_init__(self):
         object.__setattr__(self, "mean", tuple(self.mean))

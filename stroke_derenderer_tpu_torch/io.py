@@ -1,7 +1,10 @@
-"""Host-side image and JSON I/O: a PNG reader and writer on ``zlib`` + numpy.
+"""Host-side image, JSON and SVG I/O: a PNG reader and writer on ``zlib`` +
+numpy, and the SVG export of strokes.
 
-Counterpart of the JAX package's ``io/images.py`` (which uses PIL) and
-``io/serial.py``. The reader takes every PNG the standard defines: colour
+Counterpart of the JAX package's ``io/images.py`` (which uses PIL),
+``io/serial.py`` and ``io/svg.py``. PNG files and PNG bytes (a request
+body) share one parser, :func:`decode_png`, and one writer,
+:func:`encode_png`. The reader takes every PNG the standard defines: colour
 types 0 (grey, 1/2/4/8/16 bits), 2 (RGB, 8/16), 3 (palette, 1/2/4/8), 4
 (grey + alpha, 8/16) and 6 (RGBA, 8/16), plain or Adam7-interlaced, with
 all five row filters; it raises on a file that is not one. ``load_image``
@@ -16,6 +19,7 @@ from __future__ import annotations
 import json
 import struct
 import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -100,24 +104,28 @@ def _decode_image(data: np.ndarray, h: int, w: int, depth: int,
     return pix.reshape(h, w, channels), n
 
 
-def read_png(path) -> np.ndarray:
-    """PNG file -> (H, W, C) uint8, C = 1 (grey), 2 (grey + alpha), 3 (RGB
+def decode_png(blob: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, C) uint8, C = 1 (grey), 2 (grey + alpha), 3 (RGB
     and palette) or 4 (RGBA), with samples brought to 8 bits the way PIL's
     ``convert("RGB")`` brings them: grey of 1, 2 or 4 bits scaled to 0..255,
     16-bit grey clipped at 255 (PIL's ``I;16``), every other 16-bit sample
     cut to its high byte, a palette looked up (indices past its end give
-    black)."""
-    with open(path, "rb") as f:
-        blob = f.read()
+    black). Raises ValueError on bytes that are not such a PNG."""
     if blob[:8] != _SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError("not a PNG file")
     pos, idat, palette, header = 8, [], None, None
     while pos < len(blob):
+        if pos + 12 > len(blob):
+            raise ValueError("truncated PNG chunk")
         (n,) = struct.unpack(">I", blob[pos:pos + 4])
         kind = blob[pos + 4:pos + 8]
         body = blob[pos + 8:pos + 8 + n]
         pos += 12 + n
+        if pos > len(blob):
+            raise ValueError(f"truncated PNG chunk {kind!r}")
         if kind == b"IHDR":
+            if n != 13:
+                raise ValueError(f"IHDR chunk of {n} bytes, expected 13")
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
@@ -126,13 +134,16 @@ def read_png(path) -> np.ndarray:
         elif kind == b"IEND":
             break
     if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
+        raise ValueError("no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = header
     channels, depths = _COLOUR_TYPES.get(ctype, (0, ()))
     if depth not in depths or interlace not in (0, 1):
-        raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, "
+        raise ValueError(f"unsupported PNG (bit depth {depth}, "
                          f"colour type {ctype}, interlace {interlace})")
-    data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    try:
+        data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as exc:
+        raise ValueError(f"corrupt PNG data: {exc}") from None
     if interlace == 0:
         pix, _ = _decode_image(data, h, w, depth, channels)
     else:  # Adam7: seven sub-images, each filtered on its own
@@ -147,7 +158,7 @@ def read_png(path) -> np.ndarray:
                 pos += used
     if ctype == 3:
         if palette is None:
-            raise ValueError(f"{path}: palette image without PLTE")
+            raise ValueError("palette image without PLTE")
         lut = np.zeros((256, 3), np.uint8)
         lut[:len(palette)] = palette[:256]
         return lut[pix[:, :, 0]]
@@ -160,8 +171,19 @@ def read_png(path) -> np.ndarray:
     return pix
 
 
-def write_png(path, img: np.ndarray) -> None:
-    """(H, W) or (H, W, 1) uint8 -> L; (H, W, 3) uint8 -> RGB."""
+def read_png(path) -> np.ndarray:
+    """PNG file -> :func:`decode_png` of its bytes; errors name the file."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    try:
+        return decode_png(blob)
+    except ValueError as exc:
+        raise ValueError(f"{path}: {exc}") from None
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """(H, W) or (H, W, 1) uint8 -> L; (H, W, 3) uint8 -> RGB: the bytes of
+    a PNG file, filter 0 on every row."""
     arr = np.asarray(img, np.uint8)
     if arr.ndim == 3 and arr.shape[2] == 1:
         arr = arr[:, :, 0]
@@ -179,19 +201,29 @@ def write_png(path, img: np.ndarray) -> None:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
+    return (_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path, img: np.ndarray) -> None:
+    """:func:`encode_png` of ``img`` into a file."""
     with open(path, "wb") as f:
-        f.write(_SIGNATURE
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype,
-                                             0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-                + chunk(b"IEND", b""))
+        f.write(encode_png(img))
+
+
+def to_rgb(pix: np.ndarray) -> np.ndarray:
+    """:func:`decode_png`'s (H, W, C) samples -> (H, W, 3) RGB uint8, as
+    PIL's ``convert("RGB")``: grey replicated, alpha dropped."""
+    if pix.shape[2] <= 2:
+        return np.repeat(pix[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(pix[:, :, :3])
 
 
 def load_image(img_filepath, grayscale: bool = False) -> np.ndarray:
     """PNG -> (H, W, 3) RGB uint8, or (H, W, 1) luma with ``grayscale``."""
-    pix = read_png(img_filepath)
-    arr = np.repeat(pix[:, :, :1], 3, axis=2) if pix.shape[2] <= 2 \
-        else np.ascontiguousarray(pix[:, :, :3])
+    arr = to_rgb(read_png(img_filepath))
     if grayscale:
         # cv2.cvtColor(BGR2GRAY) rounding: y = 0.299 R + 0.587 G + 0.114 B.
         y = arr.astype(np.float32) @ np.array([0.299, 0.587, 0.114],
@@ -210,3 +242,56 @@ def save_image(img: np.ndarray, save_filepath, grayscale: bool = False) -> None:
 def save_json(obj, save_path) -> None:
     with open(save_path, "w") as out:
         json.dump(obj, out)
+
+
+_SVG_HEADER = ('<svg xmlns="http://www.w3.org/2000/svg" '
+               'width="{w:.10g}" height="{h:.10g}" '
+               'viewBox="0 0 {w:.10g} {h:.10g}">\n')
+
+
+def _fmt(v: float) -> str:
+    return f"{float(v):.10g}"
+
+
+def strokes_to_svg(strokes, size: tuple[float, float] | None = None,
+                   scale: float = 1.0, stroke_width: float = 2.0,
+                   color: str = "#000") -> str:
+    """``[(X, Y), ...]`` polylines -> an SVG document: image coordinates, y
+    pointing down, one polyline per stroke (a dot for a single vertex).
+    ``size`` is the canvas (width, height), inferred from the strokes'
+    extent plus a stroke width when omitted; ``scale`` multiplies the
+    coordinates as ``strokes_to_json``'s does."""
+    polys = []
+    for x, y in strokes:
+        x = np.asarray(x, dtype=np.float64) * scale
+        y = np.asarray(y, dtype=np.float64) * scale
+        n = min(x.size, y.size)
+        if n:
+            polys.append((x[:n], y[:n]))
+    if size is None:
+        if polys:
+            size = (max(float(p[0].max()) for p in polys) + stroke_width,
+                    max(float(p[1].max()) for p in polys) + stroke_width)
+        else:
+            size = (stroke_width, stroke_width)
+    parts = [_SVG_HEADER.format(w=size[0], h=size[1])]
+    for x, y in polys:
+        if x.size == 1:  # a zero-length polyline would not show
+            parts.append(f'  <circle cx="{_fmt(x[0])}" cy="{_fmt(y[0])}" '
+                         f'r="{_fmt(stroke_width / 2)}" fill="{color}"/>\n')
+        else:
+            pts = " ".join(f"{_fmt(a)},{_fmt(b)}" for a, b in zip(x, y))
+            parts.append(f'  <polyline points="{pts}" fill="none" '
+                         f'stroke="{color}" '
+                         f'stroke-width="{_fmt(stroke_width)}" '
+                         f'stroke-linecap="round" stroke-linejoin="round"/>\n')
+    parts.append("</svg>\n")
+    return "".join(parts)
+
+
+def save_svg(strokes, filepath, size: tuple[float, float] | None = None,
+             scale: float = 1.0, stroke_width: float = 2.0,
+             color: str = "#000") -> None:
+    Path(filepath).write_text(
+        strokes_to_svg(strokes, size=size, scale=scale,
+                       stroke_width=stroke_width, color=color))

@@ -96,7 +96,9 @@ class ResNetEncoder(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
     def forward(self, x):
-        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        # Contiguous NCHW, as in the UNet: GroupNorm on a channels-last
+        # tensor splits its sums by the batch size on the CPU.
+        x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous()
         x = F.relu(group_norm(conv(x, self.stem, 2, 3), self.stem_norm))
         x = F.max_pool2d(x, 3, 2, 1)
         for block in self.blocks:

@@ -75,7 +75,10 @@ class AttentionUNet(nn.Module):
         self.head = nn.Conv2d(features[0], 1, 1)
 
     def forward(self, x):
-        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        # Contiguous NCHW: GroupNorm on a channels-last tensor splits its
+        # sums by the batch size on the CPU, so a tile's mask would depend
+        # on the batch it rides in.
+        x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous()
         skips = []
         for block in self.down:
             x = block(x)

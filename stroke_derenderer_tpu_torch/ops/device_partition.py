@@ -156,11 +156,28 @@ def gather_crops(gid_img: torch.Tensor, coords) -> torch.Tensor:
     """(H, W) group-id image + the plan's compact coordinates, as tensors on
     one device -> (N, S, S) float32 crops with values 0..255. The float32
     products need TF32 off on the card (``device.resolve_device``)."""
+    g = torch.arange(coords[0].shape[0], device=gid_img.device)
+    src = gid_img.long()[None] == g[:, None, None]
+    return _interp_crops(src.float() * 255.0, coords)
+
+
+def gather_crops_batched(gid_stack: torch.Tensor, img_idx: torch.Tensor,
+                         local_id: torch.Tensor, coords) -> torch.Tensor:
+    """Cross-image variant: ``gid_stack`` (I, H, W) int16 holds every
+    image's group-id image, padded with -1; ``img_idx`` and ``local_id``
+    (N,) give each glyph row's image and its group id there; ``coords`` as
+    for :func:`gather_crops`, one row per glyph. -> (N, S, S) float32 crops,
+    the rows :func:`gather_crops` gives for each image."""
+    src = gid_stack[img_idx.long()] == local_id.to(gid_stack.dtype)[:, None,
+                                                                     None]
+    return _interp_crops(src.float() * 255.0, coords)
+
+
+def _interp_crops(src: torch.Tensor, coords) -> torch.Tensor:
+    """(N, H, W) float32 source canvases + compact interpolation rows ->
+    (N, S, S) crops: resize and pad as two batched matrix products."""
     yi0, wy1, ylast, xi0, wx1, xlast = coords
-    n = yi0.shape[0]
-    hh, ww = gid_img.shape
-    g = torch.arange(n, device=gid_img.device)
-    src = (gid_img.long()[None] == g[:, None, None]).float() * 255.0
+    _, hh, ww = src.shape
     ry = _interp_rows(yi0, wy1, ylast, hh)       # (N, S, H)
     rx = _interp_rows(xi0, wx1, xlast, ww)       # (N, S, W)
     crops = torch.bmm(torch.bmm(ry, src), rx.transpose(1, 2))

@@ -1,10 +1,19 @@
 """Binarization: resize -> tile -> attention-UNet -> threshold -> stitch.
 
-Counterpart of the bucketed ``Binarizer.binarize_image`` of the JAX
-``pipeline/binarize.py``: tiles are cut and stitched on the host, the tile
-batch is padded to a multiple of ``config.batch_bucket`` and runs through
-the UNet on the device in one call. The output is a (height, W_rs, 1) uint8
-image in {0, 255} at the height-normalized resolution.
+Counterpart of the JAX ``pipeline/binarize.py``, in its two modes:
+
+- bucketed (the default): tiles are cut and stitched on the host, the tile
+  batch is padded to a multiple of ``config.batch_bucket`` and runs through
+  the UNet on the device in one call;
+- fused (``fused=True``): cut, UNet, threshold and stitch all on the
+  device, one program per tile plan.
+
+``binarize_images`` batches across images: width groups of at least
+``config.fused_batch_min`` images (every group with ``fused=True``) go
+through the batched fused program, which uploads the resized lines and
+downloads bit-packed masks; the rest share one bucketed tile batch. The
+output of each image is a (height, W_rs, 1) uint8 image in {0, 255} at the
+height-normalized resolution, the same in every mode.
 """
 
 from __future__ import annotations
@@ -17,7 +26,8 @@ from stroke_derenderer_tpu_torch.device import dtype_of, resolve_device
 from stroke_derenderer_tpu_torch.models.unet import AttentionUNet
 from stroke_derenderer_tpu_torch.ops.resize import resize_to_height_np
 from stroke_derenderer_tpu_torch.ops.tiling import (
-    TilePlan, cut_tiles_np, plan_tiles, stitch_tiles_np,
+    TilePlan, cut_tiles, cut_tiles_np, plan_tiles, stitch_tiles,
+    stitch_tiles_np,
 )
 from stroke_derenderer_tpu_torch.weights import from_flax_unet, read_msgpack
 
@@ -26,20 +36,36 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _prep_line(image: np.ndarray, cfg: BinarizerConfig) -> np.ndarray:
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)  # np.packbits' bit order
+
+
+def _prep_line(image: np.ndarray, cfg: BinarizerConfig,
+               keep_gray: bool = False) -> np.ndarray:
     """Height-normalize; a one-channel line is repeated to the model's
-    channels."""
-    img_rs = resize_to_height_np(np.asarray(image), cfg.height)
+    channels. With ``keep_gray`` (for a program that repeats the channel on
+    the device) an achromatic RGB line drops to one channel before the
+    resize and stays so: the resize works per channel, so the result is the
+    same."""
+    img = np.asarray(image)
+    if (keep_gray and img.ndim == 3 and img.shape[2] == 3
+            and np.array_equal(img[..., 0], img[..., 1])
+            and np.array_equal(img[..., 0], img[..., 2])):
+        img = img[..., :1]
+    img_rs = resize_to_height_np(img, cfg.height)
     if img_rs.ndim == 2:
         img_rs = img_rs[:, :, None]
-    if img_rs.shape[2] == 1 and cfg.channels == 3:
+    if not keep_gray and img_rs.shape[2] == 1 and cfg.channels == 3:
         img_rs = np.repeat(img_rs, 3, axis=2)
     return img_rs
 
 
 class Binarizer:
-    def __init__(self, config: BinarizerConfig, weights_path, device=None):
-        """``weights_path``: the UNet's flax msgpack file."""
+    def __init__(self, config: BinarizerConfig, weights_path, device=None,
+                 fused: bool = False):
+        """``weights_path``: the UNet's flax msgpack file. ``fused``: cut
+        and stitch on the device (one program per tile plan), and every
+        width group of ``binarize_images`` through the batched fused
+        program."""
         self.config = cfg = config
         if cfg.norm != "group" or cfg.quant != "none":
             raise NotImplementedError(
@@ -51,6 +77,20 @@ class Binarizer:
         model.load_state_dict(from_flax_unet(read_msgpack(weights_path),
                                              len(cfg.features)))
         self.model = model.to(self.device).eval()
+        self.fused = fused
+
+    def _mask(self, tiles: torch.Tensor) -> torch.Tensor:
+        """(T, H, W, C) uint8 tiles on the device -> (T, H, W, 1) uint8
+        masks in {0, 255}; a one-channel tile is repeated to the model's
+        channels."""
+        x = tiles.float() / 255.0
+        if x.shape[-1] == 1 and self.config.channels != 1:
+            x = x.repeat(1, 1, 1, self.config.channels)
+        probs = self.model(x)
+        return torch.where(probs > self.config.bin_thr, 255, 0).to(torch.uint8)
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
     @torch.inference_mode()
     def binarize_tiles(self, tiles_u8: np.ndarray) -> np.ndarray:
@@ -59,15 +99,100 @@ class Binarizer:
         tb = _round_up(t, self.config.batch_bucket)
         x = torch.zeros((tb,) + tiles_u8.shape[1:], dtype=torch.uint8,
                         device=self.device)
-        x[:t] = torch.from_numpy(np.ascontiguousarray(tiles_u8)).to(self.device)
-        probs = self.model(x.float() / 255.0)
-        mask = torch.where(probs > self.config.bin_thr, 255, 0).to(torch.uint8)
-        return mask[:t].cpu().numpy()
+        x[:t] = self._upload(tiles_u8)
+        return self._mask(x)[:t].cpu().numpy()
+
+    @torch.inference_mode()
+    def _fused_batch(self, imgs_u8: np.ndarray, plan: TilePlan) -> torch.Tensor:
+        """(B, H, W, C) resized lines of one tile plan -> (B, H, ceil(W / 8))
+        uint8 masks bit-packed on the device, still there: device cut, the
+        channel repeated on the device when C = 1, UNet, threshold, stitch,
+        pack."""
+        tiles = cut_tiles(self._upload(imgs_u8), plan)
+        b, t = tiles.shape[:2]
+        mask = self._mask(tiles.flatten(0, 1)).unflatten(0, (b, t))
+        out = stitch_tiles(mask, plan)[..., 0] > 0           # (B, H, W)
+        wp = _round_up(plan.img_width, 8)
+        bits = torch.zeros(out.shape[:2] + (wp,), dtype=torch.int32,
+                           device=out.device)
+        bits[..., :plan.img_width] = out.to(torch.int32)
+        weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32,
+                               device=out.device)
+        return (bits.unflatten(-1, (wp // 8, 8)) * weights).sum(-1).to(
+            torch.uint8)
+
+    def _binarize_images_fused(self, images, plans: list[TilePlan],
+                               idxs_all: list[int], out: list) -> None:
+        """Same-width images in groups through :meth:`_fused_batch`, each
+        group split into ``config.io_chunks`` sub-dispatches, all queued on
+        the device before the first download. Results go into ``out`` at
+        their original indices."""
+        cfg = self.config
+        by_plan: dict[TilePlan, list[int]] = {}
+        for i in idxs_all:
+            by_plan.setdefault(plans[i], []).append(i)
+        pending = []  # (packed masks on the device, indices, plan)
+        for plan, idxs in by_plan.items():
+            nch = max(1, (len(idxs) + cfg.io_chunks - 1) // cfg.io_chunks)
+            for c0 in range(0, len(idxs), nch):
+                chunk = idxs[c0:c0 + nch]
+                prepped = [_prep_line(images[i], cfg, keep_gray=True)
+                           for i in chunk]
+                cmax = max(p.shape[-1] for p in prepped)
+                batch = np.stack([p if p.shape[-1] == cmax
+                                  else np.repeat(p, cmax, axis=2)
+                                  for p in prepped])
+                pending.append((self._fused_batch(batch, plan), chunk, plan))
+        for packed, chunk, plan in pending:
+            masks = np.unpackbits(packed.cpu().numpy(),
+                                  axis=-1)[:, :, :plan.img_width]
+            for j, i in enumerate(chunk):
+                out[i] = (masks[j] * 255).astype(np.uint8)[:, :, None]
 
     def binarize_image(self, image: np.ndarray) -> np.ndarray:
-        """(H0, W0, C) uint8 -> (height, W_rs, 1) uint8 in {0, 255}."""
+        """(H0, W0, C) uint8 -> (height, W_rs, 1) uint8 in {0, 255}; with
+        ``fused``, through the batched fused program as a batch of one."""
+        if self.fused:
+            return self.binarize_images([image])[0]
         tiles, plan = self.preprocess_image(image)
         return self.postprocess_stack(self.binarize_tiles(tiles), plan)
+
+    def binarize_images(self, images) -> list[np.ndarray]:
+        """Every image's mask, as :meth:`binarize_image` gives it, with the
+        work batched across images: width groups of at least
+        ``config.fused_batch_min`` images (every group when ``fused``) go
+        through the batched fused program, the rest through one bucketed
+        tile batch."""
+        cfg = self.config
+        if not len(images):
+            return []
+        # Resized widths from the shapes alone, with the int-truncating
+        # ratio of resize_to_height_np; the resize itself happens per chunk.
+        plans = []
+        for image in images:
+            h, w = np.asarray(image).shape[:2]
+            rs_w = w if h == cfg.height else int(w * (cfg.height / h))
+            plans.append(plan_tiles(rs_w, cfg.width, cfg.overlap))
+        counts_by_plan: dict[TilePlan, int] = {}
+        for plan in plans:
+            counts_by_plan[plan] = counts_by_plan.get(plan, 0) + 1
+        fmin = cfg.fused_batch_min if not self.fused else 1
+        fused_i = [i for i, plan in enumerate(plans)
+                   if fmin > 0 and counts_by_plan[plan] >= fmin]
+        out: list[np.ndarray | None] = [None] * len(images)
+        if fused_i:
+            self._binarize_images_fused(images, plans, fused_i, out)
+        rest = [i for i in range(len(images)) if out[i] is None]
+        if rest:
+            all_tiles = [cut_tiles_np(_prep_line(images[i], cfg), plans[i])
+                         for i in rest]
+            masks = self.binarize_tiles(np.concatenate(all_tiles, axis=0))
+            ofs = 0
+            for i, tiles in zip(rest, all_tiles):
+                n = tiles.shape[0]
+                out[i] = stitch_tiles_np(masks[ofs:ofs + n], plans[i])
+                ofs += n
+        return out  # type: ignore[return-value]
 
     def preprocess_image(self, image: np.ndarray):
         """Resize to height and cut into padded tiles -> (tiles, plan)."""

@@ -82,7 +82,7 @@ import stroke_derenderer_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-for name in ("kernels.fused_beam", "kernels.decode_attention"):
+for name in ("kernels.fused_beam", "kernels.decode_attention", "serve"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 import torch
@@ -93,6 +93,8 @@ assert entrypoint(["-models", models, "-input", inp, "--output", out,
 assert entrypoint(["-models", models, "-input", inp, "--output", out,
                    "--device", "cpu", "--decode", "beam",
                    "--beam-size", "3"]) == 0
+assert entrypoint(["-models", models, "-input", inp, "--output", out + "_b",
+                   "--device", "cpu", "--batch", "--svg"]) == 0
 dec = initialize_sessions(models, device="cpu")[1].decoder
 assert greedy_decode(dec, torch.zeros(2, 196, dec.enc_att_w.shape[0]), 4,
                      fused=True).shape == (2, 4)
@@ -103,9 +105,10 @@ print("GUARD OK", len(names))
 
 
 def test_import_guard(tmp_path):
-    """Every port module and chip_smoke.py import, and the CLI (greedy and
-    --decode beam) and the fused-attention greedy entry run a tiny model on
-    the CPU, with the JAX stack, PIL and msgpack unimportable."""
+    """Every port module (the server's too) and chip_smoke.py import, and
+    the CLI (greedy, --decode beam, --batch) and the fused-attention greedy
+    entry run a tiny model on the CPU, with the JAX stack, PIL and msgpack
+    unimportable."""
     from stroke_derenderer_tpu.config import BinarizerConfig, StrokesConfig
     from stroke_derenderer_tpu.weights.store import materialize_model_dir
     models, inp = tmp_path / "models", tmp_path / "in"
@@ -126,3 +129,4 @@ def test_import_guard(tmp_path):
     assert "GUARD OK" in proc.stdout
     assert (tmp_path / "out" / "tiny_BINARIZED.png").exists()
     assert (tmp_path / "out" / "tiny_STROKES.json").exists()
+    assert (tmp_path / "out_b" / "tiny_STROKES.svg").exists()

@@ -318,3 +318,106 @@ def test_cli_beam_of_17_on_card(tmp_path):
         stem = p.name[:-len("_BINARIZED.png")]
         strokes = json.loads((tmp_path / f"{stem}_STROKES.json").read_text())
         assert strokes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_at_the_batched_shapes(dtype):
+    """K1 at 200 rows and K2 at 200 images x 5 beams (1,000 rows), the
+    shapes of the cross-image batched path, against their plain versions:
+    tokens and lengths identical, scores within 1e-5 relative, one launch
+    each."""
+    dev = _card()
+    from stroke_derenderer_tpu_torch.kernels import fused_beam as fb
+    dt = getattr(torch, dtype)
+    dec = _shipped_decoder(dt, dev)
+    enc = _enc(200, dt, dev, 40)
+    ep, (h, c) = dec.project_encoding(enc), dec.init_state(enc)
+    w = dec.weights(dt)
+    before = fd.launch_count
+    got = fd.fused_greedy_decode_packed(enc, ep, h, c, w, 384)
+    assert fd.launch_count == before + 1
+    want = fd.fused_greedy_decode_plain(enc, ep, h, c, w, 384)
+    assert torch.equal(got, want)
+    before = fb.launch_count
+    preds, score, lens = fb.fused_beam_decode_packed(enc, ep, h, c, w, 160, 5)
+    assert fb.launch_count == before + 1
+    r_preds, r_score, r_lens = fb.fused_beam_decode_plain(enc, ep, h, c, w,
+                                                          160, 5)
+    assert preds.shape == (200, 5, 160)
+    assert torch.equal(preds, r_preds) and torch.equal(lens, r_lens)
+    torch.testing.assert_close(score, r_score, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decode", ["greedy", "beam"])
+def test_cli_batch_on_card(tmp_path, decode):
+    """--batch on the card: one launch of the path's kernel for the whole
+    input folder and none of the other; the golden mask agrees, and the
+    masks are the per-image run's."""
+    _card()
+    from stroke_derenderer_tpu_torch.cli import entrypoint
+    from stroke_derenderer_tpu_torch.io import read_png
+    from stroke_derenderer_tpu_torch.kernels import fused_beam as fb
+    args = ["-models", str(REPO / "models_demo"), "-input",
+            str(REPO / "tests" / "golden"), "--decode", decode]
+    before = (fd.launch_count, fb.launch_count)
+    assert entrypoint(args + ["--output", str(tmp_path / "b"),
+                              "--batch"]) == 0
+    launched = (fd.launch_count - before[0], fb.launch_count - before[1])
+    assert launched == ((1, 0) if decode == "greedy" else (0, 1))
+    assert entrypoint(args + ["--output", str(tmp_path / "a")]) == 0
+    for p in (tmp_path / "a").glob("*_BINARIZED.png"):
+        assert (read_png(p) == read_png(tmp_path / "b" / p.name)).mean() \
+            >= 0.9999
+        assert (tmp_path / "b" / p.name.replace(
+            "_BINARIZED.png", "_STROKES.json")).exists()
+    got = read_png(tmp_path / "b" / "golden_input_BINARIZED.png")
+    want = read_png(REPO / "tests" / "golden" / "expected_BINARIZED.png")
+    assert (got == want).mean() >= 0.999
+
+
+@pytest.mark.gpu
+def test_server_on_card():
+    """The server's default device is the card: concurrent /derender
+    requests are answered from fewer K1 launches than requests."""
+    _card()
+    import http.client
+    import json
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from http.server import ThreadingHTTPServer
+    from stroke_derenderer_tpu_torch import serve
+    from stroke_derenderer_tpu_torch.cli import initialize_sessions
+    binarizer, estimator = initialize_sessions(REPO / "models_demo")
+    assert binarizer.device.type == "cuda"
+    worker = serve.BatchWorker(binarizer, estimator, window_s=0.2)
+    worker.start()
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(worker))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    body = (REPO / "tests" / "golden" / "golden_input.png").read_bytes()
+
+    def post(_):
+        conn = http.client.HTTPConnection("127.0.0.1", srv.server_port,
+                                          timeout=300)
+        try:
+            conn.request("POST", "/derender", body=body)
+            r = conn.getresponse()
+            return r.status, json.loads(r.read())
+        finally:
+            conn.close()
+
+    try:
+        before = fd.launch_count
+        with ThreadPoolExecutor(4) as pool:
+            replies = list(pool.map(post, range(4)))
+        launched = fd.launch_count - before
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        worker.close()
+        worker.join(60)
+    assert [s for s, _ in replies] == [200] * 4
+    assert all(out["strokes"] for _, out in replies)
+    assert 0 < launched < 4

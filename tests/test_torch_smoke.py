@@ -1,5 +1,6 @@
-"""``chip_smoke.py`` rehearsed on the CPU: the card is faked (availability,
-name, events, ``nvidia-smi``), the device is the CPU, and the wrappers of
+"""``chip_smoke.py`` rehearsed on the CPU, all eleven phases: the card is
+faked (availability, name, events, ``nvidia-smi``), the device is the CPU,
+the server listens on 127.0.0.1, and the wrappers of
 K1, K2 and K3 run their plain versions (K3's with bfloat16 streams, as on
 the card) and count a launch; K3's bare launch runs the split-position
 emulation. This checks the script's phases and its
@@ -108,6 +109,10 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
         chip_smoke.subprocess, "run",
         lambda cmd, **k: types.SimpleNamespace(stdout="fake card, 700.00 W\n"))
     monkeypatch.setattr(chip_smoke, "MAX_LENGTH", 6)
+    # The estimators decode MAX_LENGTH steps, so here the strokes are cut
+    # short and the script's bar on the golden strokes cannot hold
+    # (tests/test_torch_cli.py holds the CPU's strokes to it).
+    monkeypatch.setattr(chip_smoke, "STROKES_CHAMFER_PX", float("inf"))
     monkeypatch.setattr(chip_smoke, "K1_BATCHES", (1, 3))
     monkeypatch.setattr(chip_smoke, "K2_BATCH", 3)
     monkeypatch.setattr(chip_smoke, "K3_BATCHES", (1, 3))
@@ -121,9 +126,17 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert [set(k) for k in kernels] == [keys] * 3
     assert [k["name"][:2] for k in kernels] == ["K1", "K2", "K3"]
-    # K1 and K2: one launch per input image with glyphs on their paths;
-    # K3: one per decoded step of the fused-attention entry.
-    assert [k["launches"] for k in kernels[:2]] == [45, 45]
+    # K1: one launch per input image with glyphs on the per-image path, one
+    # on the batched path, one per served batch with /derender requests; K2
+    # likewise on the beam paths; K3: one per decoded step of the
+    # fused-attention entry.
+    record = json.loads((tmp_path / "smoke.json").read_text())
+    served = record["serve"]["launches"]["K1"]
+    assert 0 < served < record["serve"]["derender_requests"]
+    assert [k["launches"] for k in kernels[:2]] == [45 + 1 + served, 46]
+    by_path = json.loads(lines[-3])["launches_by_path"]
+    assert by_path["K1"] == {"main": 45, "batch": 1, "serve": served}
+    assert by_path["K2"] == {"main-beam": 45, "batch-beam": 1}
     assert 0 < kernels[2]["launches"] <= chip_smoke.MAX_LENGTH
     for k in kernels:
         assert (REPO / k["source"]).exists()
@@ -131,11 +144,36 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
         assert "pallas_call" in (REPO / path).read_text().splitlines()[
             int(line) - 1]
     assert "fake card, 700.00 W" in lines
-    record = json.loads((tmp_path / "smoke.json").read_text())
     assert set(record["build"]) == set(chip_smoke.LIBS)
-    for phase in ("main", "main_beam"):
+    for phase in ("main", "main_beam", "batch", "batch_beam"):
         assert record[phase]["golden_mask_agree"] >= chip_smoke.MASK_AGREE
     assert record["main_beam"]["launches"]["K1"] == 0
+    # The batched paths: one launch each, and on the CPU (float32 crops,
+    # the UNet batch-invariant) the per-image run's masks and strokes.
+    assert record["batch"]["launches"] == {"K1": 1, "K2": 0, "K3": 0}
+    assert record["batch_beam"]["launches"] == {"K1": 0, "K2": 1, "K3": 0}
+    for phase in ("batch", "batch_beam"):
+        assert record[phase]["per_image"]["differing_px"] == 0
+    assert record["batch"]["per_image"]["strokes_identical"] == 45
+    rows = record["batch"]["rows_against_alone"]
+    assert rows["rows"] == 197
+    for key in ("crops_identical_rows", "encoder_identical_rows",
+                "tokens_identical_rows"):
+        assert rows[key] == 197, key
+    assert [c["B"] for c in record["k1_batched"]] == [197, 197]
+    assert [c["B"] * c["K"] for c in record["k2_batched"]] == [985, 985]
+    assert all(c["ok"] for c in record["k1_batched"] + record["k2_batched"])
+    assert record["k1_batched_breakdown"]["B"] == 197
+    for phase, key in (("batch", "k1_ms"), ("batch_beam", "k2_ms")):
+        assert record[phase][key]["per_image_launches"] > 0
+    fused = record["fused_binarize"]
+    assert fused["fused_program_images"]["fused"] == 45
+    assert fused["fused_vs_default"]["differing_px"] == 0
+    assert fused["fused_vs_per_image"]["differing_px"] == 0
+    serve = record["serve"]
+    assert max(int(k) for k in serve["batch_size_hist"]) > 1
+    assert serve["svg_ok"]
+    assert serve["latency_s"]["strokes"]["p50"] is not None
     for phase in ("k1", "k2", "k3"):
         assert record[phase] and all(c["ok"] for c in record[phase])
     # K2 beyond the old limit of 16 beams, and the launch shape of K1 and K2.
