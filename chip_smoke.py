@@ -81,6 +81,25 @@ non-zero and prints no result:
    batch holds more than one request, K1 launches fewer times than there
    were /derender requests, the golden strokes are within
    ``STROKES_CHAMFER_PX``; the stage latencies of /metrics are printed.
+12. real: ``--preset real`` (residual re-decode at coverage 0.9, up to
+   ``redecode_passes`` passes). ``cli.run`` on the 45 images: K1 launches
+   between one per image with glyphs plus one and one per image and pass;
+   ``cli.run_batched``: one K1 launch per pass (2 to 1 + passes); ``--decode
+   beam --preset real`` on the golden image: K2 at least twice. In the
+   per-image runs the golden mask as in phase 4 and the golden strokes
+   cover at least as much of the mask's ink (as ``_residual_for`` measures
+   it) as phase 4's (greedy) or phase 7's (beam). Then K1 against its plain
+   version on the glyph rows of the first residual pass of the batched run
+   (phase 3's bars). Prints ms/image per run, the host seconds spent in
+   ``residual_ink``, ``merge_stroke_fragments`` and ``refine_strokes``
+   (wrapped here, not in the package) and one ``--refine 3`` run's time.
+13. eval: the port's evaluator (``eval/run.py``) on the card in bfloat16:
+   ``evaluate_real`` on the 44 pairs of ``examples/real_data``, greedy and
+   with ``redecode_coverage`` 0.9, and ``evaluate_full(style="mixed",
+   n=50, seed=0)``, greedy, each against the JAX package's CPU run in
+   ``tests/golden/jax_cpu_eval.json`` (``scripts/jax_cpu_eval.py``): DTW
+   within the JAX run's ``stroke_dtw_ci95``, F1 (and the 1 px F1) within
+   ``EVAL_F1_TOL``, coverage within ``EVAL_COVERAGE_TOL``.
 
 K1 and K2 are one cooperative launch each per decode call; phases 3 and 5
 record each launch's grid, its grid barriers per step and the time of one
@@ -130,6 +149,12 @@ STROKES_CHAMFER_PX = 6.0  # golden strokes, batched and served (as the tests)
 BATCH_MASK_AGREE = 0.9999  # batched or fused masks against per-image ones
 SERVE_CONCURRENT = 8       # concurrent /derender requests of phase 11
 SERVE_WINDOW_S = 0.1       # the server's batching window in phase 11
+REAL_DATA = ROOT / "examples" / "real_data"  # phase 13's real-ink pairs
+JAX_EVAL = GOLDEN / "jax_cpu_eval.json"      # phase 13's reference
+EVAL_MIXED_N = 50          # synthetic samples of phase 13's mixed run
+EVAL_F1_TOL = 0.002        # |F1 - JAX| allowed in phase 13
+EVAL_COVERAGE_TOL = 0.03   # |coverage - JAX| allowed in phase 13
+REFINE_PX = 3.0            # the --refine run of phase 12
 
 # H100 SXM published peaks (NVIDIA data sheet), used for bound_ms.
 HBM_BYTES_PER_S = 3.35e12
@@ -881,6 +906,65 @@ def pick(recs, case, dtype=None):
                 and c.get("K", BEAM) == BEAM)
 
 
+@contextlib.contextmanager
+def host_timers(mod, names):
+    """Wrap the functions ``names`` of module ``mod`` to sum their host
+    seconds and calls into the yielded dict, with the largest number of
+    strokes one call was given; restored on the way out."""
+    spent = {n: {"s": 0.0, "calls": 0, "max_strokes": 0} for n in names}
+    real = {n: getattr(mod, n) for n in names}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return real[name](*args, **kwargs)
+            finally:
+                spent[name]["s"] += time.perf_counter() - t
+                spent[name]["calls"] += 1
+                given = args[1] if name == "residual_ink" else args[0]
+                spent[name]["max_strokes"] = max(
+                    spent[name]["max_strokes"], len(given))
+        return call
+
+    for n in names:
+        setattr(mod, n, timed(n))
+    try:
+        yield spent
+    finally:
+        for n in names:
+            setattr(mod, n, real[n])
+
+
+def golden_coverage(outputs: dict, img, tol: int) -> float:
+    """Share of the golden mask's ink that its strokes (as written, rescaled
+    back to the mask's frame) cover, as ``_residual_for`` measures it."""
+    import numpy as np
+    from stroke_derenderer_tpu_torch.pipeline.strokes import residual_ink
+    mask, strokes = outputs["golden_input"]
+    ratio = img.shape[0] / mask.shape[0]
+    strokes = [(np.asarray(x) / ratio, np.asarray(y) / ratio)
+               for x, y in strokes]
+    resid = residual_ink(mask, strokes, tol=tol)
+    return 1.0 - (0 if resid is None else int(resid.sum())) / int(mask.sum())
+
+
+def against_jax(name: str, got: dict, ref: dict) -> list[str]:
+    """The bars of phase 13 for one run: the misses, as text."""
+    misses = []
+    if abs(got["stroke_dtw"] - ref["stroke_dtw"]) > ref["stroke_dtw_ci95"]:
+        misses.append(f"{name}: stroke_dtw {got['stroke_dtw']} against JAX "
+                      f"{ref['stroke_dtw']} +- {ref['stroke_dtw_ci95']}")
+    for key in ("binarization_f1", "binarization_f1_tol1"):
+        if key in ref and abs(got[key] - ref[key]) > EVAL_F1_TOL:
+            misses.append(f"{name}: {key} {got[key]} against JAX {ref[key]}")
+    if abs(got["stroke_coverage"] - ref["stroke_coverage"]) > (
+            EVAL_COVERAGE_TOL):
+        misses.append(f"{name}: stroke_coverage {got['stroke_coverage']} "
+                      f"against JAX {ref['stroke_coverage']}")
+    return misses
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None,
@@ -1081,8 +1165,8 @@ def main(argv=None) -> int:
         MODELS, device=dev, se_overrides={"decode": "beam",
                                           "beam_size": BEAM,
                                           "max_length": MAX_LENGTH})
-    beam_rec, _ = drive_cli(cli, read_png, imgs, binarizer, beam_estimator,
-                            counters)
+    beam_rec, beam_out = drive_cli(cli, read_png, imgs, binarizer,
+                                   beam_estimator, counters)
     record["main_beam"] = beam_rec
     beam_launches = beam_rec["launches"]["K2"]
     if (beam_launches == 0
@@ -1248,11 +1332,172 @@ def main(argv=None) -> int:
            f"binarize p50/p90 {lat['binarize']['p50']}/"
            f"{lat['binarize']['p90']} s, strokes "
            f"{lat['strokes']['p50']}/{lat['strokes']['p90']} s")
+
+    # 12. --preset real: residual re-decode ----------------------------------
+    t0 = time.monotonic()
+    from stroke_derenderer_tpu_torch.pipeline import strokes as pipe
+    real_args = ["-models", str(MODELS), "--preset", "real"]
+    real_ov = cli.strokes_overrides(cli.parse_args(real_args))
+    real_ov["max_length"] = MAX_LENGTH
+    _, real_est = cli.initialize_sessions(MODELS, device=dev,
+                                          se_overrides=real_ov)
+    passes = real_est.config.redecode_passes
+    tol = real_est.config.redecode_tol
+    host_names = ("residual_ink", "merge_stroke_fragments", "refine_strokes")
+    real_rec = {"passes": passes, "redecode_coverage":
+                real_est.config.redecode_coverage}
+    with host_timers(pipe, host_names) as spent:
+        rec, real_out = drive_cli(cli, read_png, imgs, binarizer, real_est,
+                                  counters)
+    rec["host_s"] = spent
+    real_rec["per_image"] = rec
+    with host_timers(pipe, host_names) as spent:
+        rec, breal_out = drive_cli(cli, read_png, imgs, binarizer, real_est,
+                                   counters, cli.run_batched)
+    rec["host_s"] = spent
+    rec["per_image_run"] = against_per_image(breal_out, real_out)
+    real_rec["batched"] = rec
+    _, real_beam_est = cli.initialize_sessions(
+        MODELS, device=dev, se_overrides=cli.strokes_overrides(
+            cli.parse_args(real_args + ["--decode", "beam", "--beam-size",
+                                        str(BEAM)])) | {
+            "max_length": MAX_LENGTH})
+    with host_timers(pipe, host_names) as spent:
+        rec, rbeam_out = drive_cli(cli, read_png, imgs[:1], binarizer,
+                                   real_beam_est, counters)
+    rec["host_s"] = spent
+    real_rec["beam"] = rec
+    refine_ov = cli.strokes_overrides(cli.parse_args(
+        ["-models", str(MODELS), "--refine", str(REFINE_PX)]))
+    _, refine_est = cli.initialize_sessions(
+        MODELS, device=dev, se_overrides=refine_ov | {
+            "max_length": MAX_LENGTH})
+    with host_timers(pipe, host_names) as spent:
+        rec, _ = drive_cli(cli, read_png, imgs, binarizer, refine_est,
+                           counters)
+    rec["host_s"] = spent
+    real_rec["refine"] = rec
+    golden_img = imgs[0][0]
+    real_rec["golden_coverage"] = {
+        "main": golden_coverage(main_out, golden_img, tol),
+        "real": golden_coverage(real_out, golden_img, tol),
+        "main-beam": golden_coverage(beam_out, golden_img, tol),
+        "real-beam": golden_coverage(rbeam_out, golden_img, tol),
+        "batch-real": golden_coverage(breal_out, golden_img, tol)}
+    # K1 against its plain version on the rows of the first residual pass
+    # of the batched run (the residuals of its masks after one pass).
+    with torch.inference_mode():
+        breal_masks = [breal_out[name][0] for _, name in imgs]
+        first = real_est._process_images_once(breal_masks, MAX_LENGTH)
+        resids = [r for r in (real_est._residual_for(m, s)
+                              for m, s in zip(breal_masks, first))
+                  if r is not None]
+        crops = real_est._gather_batch(resids)[0]
+        seqs["residual"] = encode_postprocess(
+            real_est.encoder(real_est._normalize_raw(crops)),
+            real_est.config.encode_image_size)
+        del crops
+        residual_k1 = [compare_k1(fd, decoder, seqs["residual"], dtype,
+                                  "residual") for dtype in (torch.float32,
+                                                            torch.bfloat16)]
+    real_rec["residual_images"] = len(resids)
+    real_rec["k1_residual"] = [{k: c[k] for k in (
+        "case", "dtype", "B", "agree", "rows_identical", "ok", "ms",
+        "plain_ms", "bound_ms", "steps_max") if k in c} | (
+        {"max_gap": c["max_gap_at_first_difference"]}
+        if "max_gap_at_first_difference" in c else {}) for c in residual_k1]
+    record["real"] = real_rec
+    summary = {run: {
+        "ms_per_image_binarize": 1e3 * real_rec[run]["binarize_s_per_image"],
+        "ms_per_image_strokes": 1e3 * real_rec[run]["strokes_s_per_image"],
+        "launches": real_rec[run]["launches"],
+        "host_s": {n: v["s"] for n, v in real_rec[run]["host_s"].items()},
+        "run_s": real_rec[run]["run_s"]}
+        for run in ("per_image", "batched", "beam", "refine")}
+    print(json.dumps({"real": summary, "golden_coverage": real_rec[
+        "golden_coverage"], "batched_against_per_image": real_rec[
+        "batched"]["per_image_run"], "residual_images": len(resids)}),
+        flush=True)
+    for c in real_rec["k1_residual"]:
+        print(json.dumps(c), flush=True)
+    with_glyphs = real_rec["per_image"]["images_with_glyphs"]
+    k1_real = real_rec["per_image"]["launches"]["K1"]
+    k1_breal = real_rec["batched"]["launches"]["K1"]
+    k2_rbeam = real_rec["beam"]["launches"]["K2"]
+    cover = real_rec["golden_coverage"]
+    if not with_glyphs + 1 <= k1_real <= with_glyphs * (1 + passes):
+        raise SystemExit(f"real: {k1_real} K1 launches for {with_glyphs} "
+                         f"images with glyphs and {passes} passes")
+    if not 2 <= k1_breal <= 1 + passes:
+        raise SystemExit(f"batch-real: {k1_breal} K1 launches, expected one "
+                         f"per pass (2 to {1 + passes})")
+    if k2_rbeam < 2 or real_rec["beam"]["launches"]["K1"] != 0:
+        raise SystemExit(f"real-beam: launches {real_rec['beam']['launches']}")
+    if cover["real"] < cover["main"] or cover["real-beam"] < cover[
+            "main-beam"]:
+        raise SystemExit(f"real: the golden strokes cover less ink with the "
+                         f"residual passes: {cover}")
+    if real_rec["refine"]["launches"]["K1"] != with_glyphs:
+        raise SystemExit(f"refine: launches {real_rec['refine']['launches']}")
+    bad = [c for c in residual_k1 if not c["ok"]]
+    if bad:
+        raise SystemExit(f"K1 on the residual rows disagrees with its plain "
+                         f"version: {real_rec['k1_residual']}")
+    _phase("real", t0, f"K1 launches {k1_real} per image ({with_glyphs} "
+           f"images with glyphs), {k1_breal} batched, K2 {k2_rbeam} on the "
+           f"golden image; golden coverage {cover['main']:.4f} -> "
+           f"{cover['real']:.4f} (beam {cover['main-beam']:.4f} -> "
+           f"{cover['real-beam']:.4f}); K1 on {seqs['residual'].shape[0]} "
+           f"residual rows passed")
+
+    # 13. the evaluator against the JAX package's CPU run ---------------------
+    t0 = time.monotonic()
+    from stroke_derenderer_tpu_torch.eval import run as eval_run
+    reference = json.loads(JAX_EVAL.read_text())["runs"]
+    eval_runs = {
+        "real_greedy": lambda: eval_run.evaluate_real(
+            MODELS, REAL_DATA, se_overrides={"max_length": MAX_LENGTH},
+            device=dev),
+        "real_redecode": lambda: eval_run.evaluate_real(
+            MODELS, REAL_DATA, se_overrides={"max_length": MAX_LENGTH,
+                                             "redecode_coverage": 0.9},
+            device=dev),
+        "mixed_greedy": lambda: eval_run.evaluate_full(
+            MODELS, n=EVAL_MIXED_N, seed=0, style="mixed",
+            se_overrides={"max_length": MAX_LENGTH}, device=dev)}
+    eval_rec, misses = {}, []
+    for mod in counters.values():
+        mod.launch_count = 0
+    for name, fn in eval_runs.items():
+        t_run = time.monotonic()
+        got = fn()
+        torch.cuda.synchronize()
+        ref = reference[name]["result"]
+        eval_rec[name] = {"seconds": time.monotonic() - t_run,
+                          "result": got, "jax_cpu": ref,
+                          "misses": against_jax(name, got, ref)}
+        misses += eval_rec[name]["misses"]
+        print(json.dumps({"eval": name, "seconds": eval_rec[name]["seconds"],
+                          "port_vs_jax_cpu": {k: [got[k], ref.get(k)]
+                                              for k in got}}), flush=True)
+    eval_launches = {name: mod.launch_count for name, mod in counters.items()}
+    record["eval"] = eval_rec | {"launches": eval_launches}
+    if misses:
+        raise SystemExit("eval against the JAX CPU reference: "
+                         + "; ".join(misses))
+    if eval_launches["K1"] == 0:
+        raise SystemExit(f"eval: launches {eval_launches}")
+    _phase("eval", t0, f"{len(eval_runs)} runs within the JAX CPU "
+           f"reference's bars (DTW ci95, F1 {EVAL_F1_TOL}, coverage "
+           f"{EVAL_COVERAGE_TOL}), {eval_launches['K1']} K1 launches")
     launches_by_path = {
         "K1": {"main": launches, "batch": batch_rec["launches"]["K1"],
-               "serve": k1_served},
+               "serve": k1_served, "real": k1_real, "batch-real": k1_breal,
+               "refine": real_rec["refine"]["launches"]["K1"],
+               "eval": eval_launches["K1"]},
         "K2": {"main-beam": beam_launches,
-               "batch-beam": bbeam_rec["launches"]["K2"]},
+               "batch-beam": bbeam_rec["launches"]["K2"],
+               "real-beam": k2_rbeam},
         "K3": {"greedy_decode(fused=True)": None}}
 
     # kernel table and result ---------------------------------------------

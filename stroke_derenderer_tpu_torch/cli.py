@@ -3,7 +3,8 @@
     python -m stroke_derenderer_tpu_torch.cli -models models_demo \
         -input DIR --output DIR [--device cuda|cpu] \
         [--decode greedy|beam] [--beam-size K] [--batch] [--fused] \
-        [--no-strokes] [--svg]
+        [--no-strokes] [--svg] [--preset reference|real] [--redecode C] \
+        [--redecode-passes K] [--refine PX]
 
 For every PNG in the input folder: binarize, save ``<name>_BINARIZED.png``,
 estimate strokes, save ``<name>_STROKES.json`` rescaled to the input's
@@ -12,8 +13,10 @@ prints. :func:`run` goes image by image: a failure on one image prints
 ``[error]`` and the run goes on, and it returns how many images went
 through. ``--batch`` takes :func:`run_batched` instead: every image's tiles
 in one device batch and every image's glyphs in one, the same files, and
-the prints give the amortized time per image. Runs on the card unless
-``--device cpu`` is given.
+the prints give the amortized time per image. ``--preset real`` (residual
+re-decode at coverage 0.9), ``--redecode``, ``--redecode-passes`` and
+``--refine`` set the residual passes and the ink snap; explicit flags win
+over the preset. Runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -51,6 +54,33 @@ def parse_args(argv=None):
                              "greedy; the reference is greedy-only).")
     parser.add_argument("--beam-size", type=int, default=None,
                         help="Beam width for --decode beam.")
+    parser.add_argument("--preset", choices=["reference", "real"],
+                        default="reference",
+                        help="Decode policy preset. 'reference' (default) "
+                             "is the single greedy pass. 'real' is the "
+                             "JAX package's best measured policy for real "
+                             "photographed handwriting: coverage-driven "
+                             "residual re-decode at 0.9 with the 20 px "
+                             "fragment join. Explicit --redecode/"
+                             "--redecode-passes flags win over the "
+                             "preset.")
+    parser.add_argument("--redecode", type=float, default=None, metavar="C",
+                        help="Coverage-driven re-decode: while less than "
+                             "fraction C of the ink lies within ~2 px of "
+                             "the predicted strokes, the uncovered residual "
+                             "gets another decode pass (counters early EOS "
+                             "on dense glyphs). E.g. 0.9.")
+    parser.add_argument("--redecode-passes", type=int, default=None,
+                        metavar="K",
+                        help="Max residual passes for --redecode "
+                             "(default 3; each pass stops early once "
+                             "coverage C is met or nothing new decodes).")
+    parser.add_argument("--refine", type=float, default=None, metavar="PX",
+                        help="Snap decoded stroke vertices onto the "
+                             "binarized ink within PX pixels "
+                             "(ops/strokes.refine_strokes): keeps the "
+                             "model's stroke order and topology, takes "
+                             "metric accuracy from the mask. E.g. 3.")
     parser.add_argument("--batch", action="store_true",
                         help="Throughput mode: one device batch for every "
                              "image's tiles and one for every image's "
@@ -73,7 +103,8 @@ def initialize_sessions(folderpath, device=None,
     ``binarizer``, ``strokes_encoder`` and ``strokes_decoder``, and the
     config JSONs, whose entries override the defaults. ``se_overrides``
     and ``bin_overrides`` are ``StrokesConfig`` and ``BinarizerConfig``
-    fields that win over the config JSON (``--decode``, ``--beam-size``);
+    fields that win over the config JSON (``--decode``, ``--beam-size``,
+    ``--preset``, ``--redecode``, ``--redecode-passes``, ``--refine``);
     ``fused`` is the binarizer's mode (``--fused``)."""
     folder = Path(folderpath)
 
@@ -189,14 +220,29 @@ def load_images(img_filepaths):
     return out
 
 
+def strokes_overrides(args) -> dict:
+    """The ``StrokesConfig`` fields the decode flags set: the preset first,
+    then the explicit flags, which win over it."""
+    ov = {}
+    if args.preset == "real":
+        ov["redecode_coverage"] = 0.9
+    if args.decode:
+        ov["decode"] = args.decode
+    if args.beam_size:
+        ov["beam_size"] = args.beam_size
+    if args.redecode is not None:
+        ov["redecode_coverage"] = args.redecode
+    if args.redecode_passes is not None:
+        ov["redecode_passes"] = args.redecode_passes
+    if args.refine is not None:
+        ov["refine_snap"] = args.refine
+    return ov
+
+
 def entrypoint(argv=None) -> int:
     args = parse_args(argv)
     imgs = load_images(sorted(Path(args.input).glob("*.png")))
-    se_overrides = {}
-    if args.decode:
-        se_overrides["decode"] = args.decode
-    if args.beam_size:
-        se_overrides["beam_size"] = args.beam_size
+    se_overrides = strokes_overrides(args)
     binarizer, estimator = initialize_sessions(
         args.models, device=args.device, se_overrides=se_overrides,
         fused=args.fused)

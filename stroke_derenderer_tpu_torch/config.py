@@ -78,7 +78,16 @@ class StrokesConfig:
     decode: str = "greedy"  # "greedy" | "beam"
     beam_size: int = 5
     length_penalty: float = 0.0  # GNMT length normalization (beam only)
+    # Residual re-decode (0.0 = off): while less than this share of the
+    # ink lies within ~redecode_tol px of the predicted strokes, the
+    # uncovered ink is partitioned and decoded again, up to
+    # redecode_passes passes, each pass's strokes joined to the others
+    # where endpoints lie within max(redecode_join_tol, 2*redecode_tol+2).
     redecode_coverage: float = 0.0
+    redecode_tol: int = 2
+    redecode_passes: int = 3
+    redecode_join_tol: float = 20.0
+    # Snap stroke points onto the ink within this many pixels (0 = off).
     refine_snap: float = 0.0
     compute_dtype: str = "bfloat16"
     quant: str = "none"

@@ -1,5 +1,6 @@
 """Stroke token grammar and polyline post-processing, copied from the JAX
-``ops/strokes.py`` (host numpy).
+``ops/strokes.py`` (host numpy): token decoding, sorting, and the residual
+re-decode's fragment join and ink-snap refinement.
 
 Tokens: PAD/BOS/EOS = 0/1/2, then vertex tokens where v = token - 3 is an
 x coordinate if v < image_size and a y coordinate (v - image_size)
@@ -133,6 +134,111 @@ def sort_strokes(strokes: list[Stroke]) -> list[Stroke]:
         seen[s] = True
         x, y = strokes[s]
         out.append((x[::-1], y[::-1]) if rem == 1 else (x, y))
+    return out
+
+
+def merge_stroke_fragments(strokes: list[Stroke],
+                           tol: float = 4.0) -> list[Stroke]:
+    """Join polylines whose endpoints lie within ``tol`` px into single
+    strokes, the closest pair first (on a tie the last pair scanned, by
+    ``d <= best``), until no pair is that close. Used by residual
+    re-decode: a residual pass traces the uncovered remainder of a stroke
+    that an earlier pass traced in part. Empty strokes are dropped."""
+    strokes = [(np.asarray(x, np.float64), np.asarray(y, np.float64))
+               for x, y in strokes if np.asarray(x).size]
+    while len(strokes) > 1:
+        best_d, best = tol, None
+        for i in range(len(strokes)):
+            xi, yi = strokes[i]
+            for j in range(i + 1, len(strokes)):
+                xj, yj = strokes[j]
+                for ei in (0, -1):
+                    for ej in (0, -1):
+                        d = float(np.hypot(xi[ei] - xj[ej], yi[ei] - yj[ej]))
+                        if d <= best_d:
+                            best_d, best = d, (i, j, ei, ej)
+        if best is None:
+            break
+        i, j, ei, ej = best
+        xi, yi = strokes[i]
+        xj, yj = strokes[j]
+        if ei == 0:  # the joined end must be stroke i's tail
+            xi, yi = xi[::-1], yi[::-1]
+        if ej == -1:  # ... and stroke j's head
+            xj, yj = xj[::-1], yj[::-1]
+        strokes[i] = (np.concatenate([xi, xj]), np.concatenate([yi, yj]))
+        del strokes[j]
+    return strokes
+
+
+def refine_strokes(strokes: list[Stroke], mask: np.ndarray,
+                   max_shift: float = 3.0,
+                   densify: float = 2.0) -> list[Stroke]:
+    """Snap polylines onto the ink of ``mask``. With ``densify`` > 0 each
+    polyline is resampled at ~``densify`` px of arc length, every point
+    within ``max_shift`` px of ink (and not on it) moves to the 5x5 ink
+    centroid around its nearest ink pixel, and the result is resampled
+    back to the polyline's own vertex count, uniformly in arc length.
+    With ``densify`` = 0 the vertices move to their nearest ink pixel.
+    Points farther than ``max_shift`` from ink stay; consecutive
+    duplicates are dropped."""
+    from scipy import ndimage
+
+    mask = np.asarray(mask)
+    if mask.ndim == 3:
+        mask = mask[:, :, 0]
+    mask = mask.astype(bool)
+    if not mask.any() or not strokes:
+        return strokes
+    # The EDT of the background gives each pixel its nearest ink pixel.
+    dist, (iy, ix) = ndimage.distance_transform_edt(~mask,
+                                                    return_indices=True)
+    h, w = mask.shape
+    if densify > 0:
+        m = mask.astype(np.float64)
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+        ksum = ndimage.uniform_filter(m, size=5, mode="constant")
+        cx = np.divide(
+            ndimage.uniform_filter(m * xx, size=5, mode="constant"),
+            ksum, out=xx.copy(), where=ksum > 0)
+        cy = np.divide(
+            ndimage.uniform_filter(m * yy, size=5, mode="constant"),
+            ksum, out=yy.copy(), where=ksum > 0)
+    else:
+        cy, cx = (iy.astype(np.float64), ix.astype(np.float64))
+    out: list[Stroke] = []
+    for x, y in strokes:
+        x = np.asarray(x, np.float64)
+        y = np.asarray(y, np.float64)
+        n0 = x.size
+        if densify > 0 and x.size > 1:
+            seg = np.hypot(np.diff(x), np.diff(y))
+            ts = np.concatenate([[0.0], np.cumsum(seg)])
+            total = ts[-1]
+            if total > densify:
+                t = np.linspace(0.0, total,
+                                int(np.ceil(total / densify)) + 1)
+                x = np.interp(t, ts, x)
+                y = np.interp(t, ts, y)
+        xi = np.clip(np.rint(x), 0, w - 1).astype(np.int64)
+        yi = np.clip(np.rint(y), 0, h - 1).astype(np.int64)
+        d = dist[yi, xi]
+        snap = (d > 0) & (d <= max_shift)
+        ny, nx = iy[yi, xi], ix[yi, xi]
+        sx = np.where(snap, cx[ny, nx], x)
+        sy = np.where(snap, cy[ny, nx], y)
+        if sx.size > 1:
+            keep = np.concatenate(
+                [[True], (np.diff(sx) != 0) | (np.diff(sy) != 0)])
+            sx, sy = sx[keep], sy[keep]
+        if densify > 0 and sx.size > 2 and n0 > 1:
+            seg = np.hypot(np.diff(sx), np.diff(sy))
+            ts = np.concatenate([[0.0], np.cumsum(seg)])
+            if ts[-1] > 0:
+                t = np.linspace(0.0, ts[-1], n0)
+                sx = np.interp(t, ts, sx)
+                sy = np.interp(t, ts, sy)
+        out.append((sx, sy))
     return out
 
 

@@ -3,10 +3,14 @@ crops on the device -> ResNet encoder -> fused greedy (K1) or beam (K2)
 decode -> strokes.
 
 Counterpart of ``StrokeEstimator.process_image`` and ``process_images`` of
-the JAX ``pipeline/strokes.py`` with ``device_partition`` on and no
-re-decode or refinement (the shipped configuration). ``process_images``
-runs the glyphs of every image through one crop gather, one encoder call
-and one decode launch (per ``config.io_chunks`` chunk). The JAX package
+the JAX ``pipeline/strokes.py`` with ``device_partition`` on.
+``process_images`` runs the glyphs of every image through one crop gather,
+one encoder call and one decode launch (per ``config.io_chunks`` chunk).
+With ``redecode_coverage`` > 0, ink that the strokes leave uncovered is
+decoded again in up to ``redecode_passes`` residual passes (each pass of
+``process_images`` one gather, one encoder call and one launch per chunk
+over the residuals of every image still short of the floor), and with
+``refine_snap`` > 0 the strokes are snapped onto the ink. The JAX package
 pads the glyph batch to ``glyph_bucket`` rows to bound recompiles; rows are
 independent at every stage, so the port runs the real rows only and the
 output is the same.
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from stroke_derenderer_tpu_torch.config import StrokesConfig
+from stroke_derenderer_tpu_torch.data.synthetic import rasterize_strokes
 from stroke_derenderer_tpu_torch.device import dtype_of, resolve_device
 from stroke_derenderer_tpu_torch.kernels.fused_beam import fused_beam_decode
 from stroke_derenderer_tpu_torch.kernels.fused_decode import (
@@ -31,11 +36,36 @@ from stroke_derenderer_tpu_torch.ops.device_partition import (
     PartitionPlan, gather_crops, gather_crops_batched, plan_partitions,
 )
 from stroke_derenderer_tpu_torch.ops.strokes import (
-    decode_tokens_batch, sort_strokes,
+    decode_tokens_batch, merge_stroke_fragments, refine_strokes,
+    sort_strokes,
 )
 from stroke_derenderer_tpu_torch.weights import (
     from_flax_decoder, from_flax_encoder, read_msgpack,
 )
+
+
+def residual_ink(mask: np.ndarray, strokes, tol: int = 2,
+                 min_px: int = 16) -> np.ndarray | None:
+    """Ink of ``mask`` (bool, (h, w)) not within ~``tol`` px of any of the
+    polylines, without the 8-connected specks of fewer than ``min_px``
+    pixels (they decode to noise, not strokes); None when nothing is left."""
+    from scipy import ndimage
+
+    if strokes:
+        cov = rasterize_strokes(strokes, mask.shape,
+                                thickness=tol + 1).astype(bool)
+        resid = mask & ~cov
+    else:
+        resid = mask
+    if not resid.any():
+        return None
+    lab, n = ndimage.label(resid, structure=np.ones((3, 3), bool))
+    if n == 0:
+        return None
+    sizes = np.bincount(lab.ravel())
+    sizes[0] = 0
+    resid = (sizes >= min_px)[lab]
+    return resid if resid.any() else None
 
 
 class StrokeEstimator:
@@ -50,8 +80,6 @@ class StrokeEstimator:
         unsupported = [name for name, bad in (
             ("projection_dim", cfg.projection_dim != 0),
             ("encoder_norm", cfg.encoder_norm != "group"),
-            ("redecode_coverage", cfg.redecode_coverage > 0),
-            ("refine_snap", cfg.refine_snap > 0),
             ("quant", cfg.quant != "none"),
             ("device_partition", not cfg.device_partition)) if bad]
         if unsupported:
@@ -168,8 +196,7 @@ class StrokeEstimator:
             np.asarray([partitions[i]["translate2"] for i in range(n)]))
         return sort_strokes([s for glyph in per_glyph for s in glyph])
 
-    def process_image(self, img_bin: np.ndarray, max_length: int | None = None):
-        """Binarized (H, W) image -> strokes in its coordinate frame."""
+    def _process_image_once(self, img_bin, max_length: int | None):
         plan = plan_partitions(np.asarray(img_bin), self.config.margin,
                                self.config.image_size)
         if plan is None:
@@ -177,12 +204,11 @@ class StrokeEstimator:
         return self.process_tokens(self.estimate_tokens(plan, max_length),
                                    plan.partitions)
 
-    def process_images(self, imgs_bin, max_length: int | None = None):
-        """Binarized (H, W) images -> one stroke list per image, as
-        :meth:`process_image` gives it (an image without glyphs gets []),
-        with the glyphs of every image in one crop gather, one encoder call
-        and one decode launch per ``config.io_chunks`` chunk. Every chunk is
-        queued on the device before the first tokens are downloaded."""
+    def _process_images_once(self, imgs_bin, max_length: int | None):
+        """One pass over every image: the glyphs of all of them in one crop
+        gather, one encoder call and one decode launch per
+        ``config.io_chunks`` chunk, every chunk queued on the device before
+        the first tokens are downloaded."""
         imgs_bin = list(imgs_bin)
         nch = max(1, -(-len(imgs_bin) // self.config.io_chunks))
         pending = []
@@ -201,4 +227,84 @@ class StrokeEstimator:
                 out.append(self.process_tokens(preds[ofs:ofs + n],
                                                p.partitions) if n else [])
                 ofs += n
+        return out
+
+    def _residual_for(self, img_bin, strokes):
+        """The residual ink mask while the strokes cover less than
+        ``redecode_coverage`` of the ink, else None."""
+        cfg = self.config
+        mask = np.asarray(img_bin)
+        if mask.ndim == 3:
+            mask = mask[:, :, 0]
+        mask = mask.astype(bool)
+        ink = int(mask.sum())
+        if ink == 0:
+            return None
+        resid = residual_ink(mask, strokes, tol=cfg.redecode_tol)
+        if resid is None or 1.0 - resid.sum() / ink >= cfg.redecode_coverage:
+            return None
+        return resid
+
+    def _merge_redecoded(self, strokes, extra):
+        """Base and residual strokes joined where endpoints lie within
+        max(``redecode_join_tol``, 2 * ``redecode_tol`` + 2) px, then
+        re-sorted into writing order."""
+        if not extra:
+            return strokes
+        merged = merge_stroke_fragments(
+            strokes + extra,
+            tol=max(self.config.redecode_join_tol,
+                    2.0 * self.config.redecode_tol + 2))
+        return sort_strokes(merged)
+
+    def _refine(self, strokes, img_bin):
+        """Ink-snap refinement within ``refine_snap`` px (0 = off), then
+        re-sorted: snapping can move the endpoints the sort keys on."""
+        if self.config.refine_snap <= 0 or not strokes:
+            return strokes
+        return sort_strokes(refine_strokes(strokes, np.asarray(img_bin),
+                                           self.config.refine_snap))
+
+    def process_image(self, img_bin: np.ndarray, max_length: int | None = None):
+        """Binarized (H, W) image -> strokes in its coordinate frame. With
+        ``redecode_coverage`` > 0, still-uncovered ink gets up to
+        ``redecode_passes`` residual passes, each merged and re-sorted,
+        until the coverage floor is met or a pass decodes nothing."""
+        strokes = self._process_image_once(img_bin, max_length)
+        if self.config.redecode_coverage > 0:
+            for _ in range(max(self.config.redecode_passes, 1)):
+                resid = self._residual_for(img_bin, strokes)
+                if resid is None:
+                    break
+                extra = self._process_image_once(resid, max_length)
+                if not extra:  # the residual would not shrink
+                    break
+                strokes = self._merge_redecoded(strokes, extra)
+        return self._refine(strokes, img_bin)
+
+    def process_images(self, imgs_bin, max_length: int | None = None):
+        """Binarized (H, W) images -> one stroke list per image, as
+        :meth:`process_image` gives it (an image without glyphs gets []).
+        Each pass, the first and every residual one, is one
+        :meth:`_process_images_once` over the images still in it; an image
+        whose residual pass decoded nothing leaves the loop."""
+        imgs_bin = list(imgs_bin)
+        out = self._process_images_once(imgs_bin, max_length)
+        if self.config.redecode_coverage > 0:
+            live = list(range(len(out)))
+            for _ in range(max(self.config.redecode_passes, 1)):
+                resids = {i: self._residual_for(imgs_bin[i], out[i])
+                          for i in live}
+                todo = [i for i in live if resids[i] is not None]
+                if not todo:
+                    break
+                extras = self._process_images_once(
+                    [resids[i] for i in todo], max_length)
+                live = []
+                for i, extra in zip(todo, extras):
+                    if extra:
+                        out[i] = self._merge_redecoded(out[i], extra)
+                        live.append(i)
+        if self.config.refine_snap > 0:
+            out = [self._refine(s, m) for s, m in zip(out, imgs_bin)]
         return out

@@ -82,7 +82,9 @@ import stroke_derenderer_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-for name in ("kernels.fused_beam", "kernels.decode_attention", "serve"):
+for name in ("kernels.fused_beam", "kernels.decode_attention", "serve",
+             "eval.run", "eval.metrics", "data.real", "data.synthetic",
+             "data.letters"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 import torch
@@ -95,6 +97,11 @@ assert entrypoint(["-models", models, "-input", inp, "--output", out,
                    "--beam-size", "3"]) == 0
 assert entrypoint(["-models", models, "-input", inp, "--output", out + "_b",
                    "--device", "cpu", "--batch", "--svg"]) == 0
+assert entrypoint(["-models", models, "-input", inp, "--output", out + "_r",
+                   "--device", "cpu", "--preset", "real", "--refine", "3"]) == 0
+from stroke_derenderer_tpu_torch.eval.run import main as eval_main
+assert eval_main(["--models", models, "--n", "1", "--style", "letters",
+                  "--redecode", "0.9", "--device", "cpu"]) == 0
 dec = initialize_sessions(models, device="cpu")[1].decoder
 assert greedy_decode(dec, torch.zeros(2, 196, dec.enc_att_w.shape[0]), 4,
                      fused=True).shape == (2, 4)
@@ -105,8 +112,9 @@ print("GUARD OK", len(names))
 
 
 def test_import_guard(tmp_path):
-    """Every port module (the server's too) and chip_smoke.py import, and
-    the CLI (greedy, --decode beam, --batch) and the fused-attention greedy
+    """Every port module (the server's and the evaluator's too) and
+    chip_smoke.py import, and the CLI (greedy, --decode beam, --batch,
+    --preset real), the evaluator's main and the fused-attention greedy
     entry run a tiny model on the CPU, with the JAX stack, PIL and msgpack
     unimportable."""
     from stroke_derenderer_tpu.config import BinarizerConfig, StrokesConfig
@@ -130,3 +138,5 @@ def test_import_guard(tmp_path):
     assert (tmp_path / "out" / "tiny_BINARIZED.png").exists()
     assert (tmp_path / "out" / "tiny_STROKES.json").exists()
     assert (tmp_path / "out_b" / "tiny_STROKES.svg").exists()
+    assert (tmp_path / "out_r" / "tiny_STROKES.json").exists()
+    assert '"stroke_dtw"' in proc.stdout

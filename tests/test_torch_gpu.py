@@ -421,3 +421,49 @@ def test_server_on_card():
     assert [s for s, _ in replies] == [200] * 4
     assert all(out["strokes"] for _, out in replies)
     assert 0 < launched < 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [[], ["--batch"], ["--decode", "beam"]],
+                         ids=["per-image", "batch", "beam"])
+def test_cli_preset_real_on_card(tmp_path, mode):
+    """--preset real on the card: the first pass and each residual pass are
+    one launch of the path's kernel per image, or for the whole folder with
+    --batch; the golden image needs at least one residual pass, and its
+    mask agrees."""
+    _card()
+    from stroke_derenderer_tpu_torch.cli import entrypoint
+    from stroke_derenderer_tpu_torch.io import read_png
+    from stroke_derenderer_tpu_torch.kernels import fused_beam as fb
+    mod = fb if "beam" in mode else fd
+    inputs = len(list((REPO / "tests" / "golden").glob("*.png")))
+    before = mod.launch_count
+    assert entrypoint(["-models", str(REPO / "models_demo"), "-input",
+                       str(REPO / "tests" / "golden"), "--output",
+                       str(tmp_path), "--preset", "real"] + mode) == 0
+    launched = mod.launch_count - before
+    if "--batch" in mode:
+        assert 2 <= launched <= 1 + 3
+    else:
+        assert inputs + 1 <= launched <= inputs * (1 + 3)
+    got = read_png(tmp_path / "golden_input_BINARIZED.png")
+    want = read_png(REPO / "tests" / "golden" / "expected_BINARIZED.png")
+    assert (got == want).mean() >= 0.999
+    assert (tmp_path / "golden_input_STROKES.json").exists()
+
+
+@pytest.mark.gpu
+def test_eval_runner_on_card(capsys):
+    """The evaluator runs on the card by default and prints one JSON line
+    with the JAX evaluator's keys."""
+    _card()
+    import json
+    from stroke_derenderer_tpu_torch.eval.run import main
+    before = fd.launch_count
+    assert main(["--models", str(REPO / "models_demo"), "--n", "3",
+                 "--style", "mixed", "--redecode", "0.9"]) == 0
+    assert fd.launch_count > before
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["n"] == 3 and 0.0 <= out["stroke_coverage"] <= 1.0
+    assert {"stroke_dtw", "stroke_dtw_ci95", "stroke_chamfer",
+            "binarization_f1"} <= set(out)

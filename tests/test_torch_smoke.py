@@ -1,10 +1,12 @@
-"""``chip_smoke.py`` rehearsed on the CPU, all eleven phases: the card is
+"""``chip_smoke.py`` rehearsed on the CPU, all thirteen phases: the card is
 faked (availability, name, events, ``nvidia-smi``), the device is the CPU,
 the server listens on 127.0.0.1, and the wrappers of
 K1, K2 and K3 run their plain versions (K3's with bfloat16 streams, as on
 the card) and count a launch; K3's bare launch runs the split-position
 emulation. This checks the script's phases and its
-output contract, not the kernels."""
+output contract, not the kernels. The eval phase scores two real pairs
+and two synthetic samples, with its bars against the JAX reference opened
+(the decode is cut to a few steps here)."""
 
 import json
 import sys
@@ -116,6 +118,21 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(chip_smoke, "K1_BATCHES", (1, 3))
     monkeypatch.setattr(chip_smoke, "K2_BATCH", 3)
     monkeypatch.setattr(chip_smoke, "K3_BATCHES", (1, 3))
+    real = tmp_path / "real"
+    real.mkdir()
+    for stem in ("real00_line_hearts", "real01_line_grid"):
+        for suffix in (".png", "_BINARIZED.png", "_STROKES.json"):
+            src = chip_smoke.REAL_DATA / f"{stem}{suffix}"
+            (real / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(chip_smoke, "REAL_DATA", real)
+    monkeypatch.setattr(chip_smoke, "EVAL_MIXED_N", 2)
+    reference = json.loads(chip_smoke.JAX_EVAL.read_text())
+    for run in reference["runs"].values():
+        run["result"]["stroke_dtw_ci95"] = float("inf")
+    (tmp_path / "jax.json").write_text(json.dumps(reference))
+    monkeypatch.setattr(chip_smoke, "JAX_EVAL", tmp_path / "jax.json")
+    monkeypatch.setattr(chip_smoke, "EVAL_F1_TOL", float("inf"))
+    monkeypatch.setattr(chip_smoke, "EVAL_COVERAGE_TOL", float("inf"))
 
     assert chip_smoke.main(["--out", str(tmp_path / "smoke.json")]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
@@ -133,10 +150,45 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
     record = json.loads((tmp_path / "smoke.json").read_text())
     served = record["serve"]["launches"]["K1"]
     assert 0 < served < record["serve"]["derender_requests"]
-    assert [k["launches"] for k in kernels[:2]] == [45 + 1 + served, 46]
     by_path = json.loads(lines[-3])["launches_by_path"]
-    assert by_path["K1"] == {"main": 45, "batch": 1, "serve": served}
+    assert [k["launches"] for k in kernels[:2]] == [
+        sum(by_path["K1"].values()), sum(by_path["K2"].values())]
+    real = record["real"]
+    passes = real["passes"]
+    assert passes == 3 and real["redecode_coverage"] == 0.9
+    assert 45 + 1 <= by_path["K1"].pop("real") <= 45 * (1 + passes)
+    assert 2 <= by_path["K1"].pop("batch-real") <= 1 + passes
+    assert 0 < by_path["K1"].pop("eval")
+    assert by_path["K1"] == {"main": 45, "batch": 1, "serve": served,
+                             "refine": 45}
+    assert by_path["K2"].pop("real-beam") >= 2
     assert by_path["K2"] == {"main-beam": 45, "batch-beam": 1}
+    # --preset real: every run's prints, the host seconds of the three
+    # wrapped functions, coverage that the passes do not lower, and K1 on
+    # the residual rows against its plain version.
+    for run in ("per_image", "batched", "beam", "refine"):
+        assert real[run]["strokes_s_per_image"] > 0
+        assert set(real[run]["host_s"]) == {
+            "residual_ink", "merge_stroke_fragments", "refine_strokes"}
+    assert real["per_image"]["host_s"]["residual_ink"]["calls"] >= 45
+    assert real["per_image"]["host_s"]["merge_stroke_fragments"][
+        "max_strokes"] > 0
+    assert real["refine"]["host_s"]["refine_strokes"]["calls"] > 0
+    assert real["refine"]["host_s"]["residual_ink"]["calls"] == 0
+    assert real["batched"]["per_image_run"]["strokes_identical"] == 45
+    cover = real["golden_coverage"]
+    assert cover["real"] >= cover["main"] and cover["real"] < 1
+    assert cover["real-beam"] >= cover["main-beam"]
+    assert real["residual_images"] > 0
+    assert [c["dtype"] for c in real["k1_residual"]] == ["float32",
+                                                         "bfloat16"]
+    assert all(c["ok"] and c["B"] > 0 for c in real["k1_residual"])
+    # eval: the three runs, each beside the JAX reference.
+    assert {k for k in record["eval"] if k != "launches"} == set(
+        reference["runs"])
+    assert record["eval"]["real_greedy"]["result"]["n"] == 2
+    assert record["eval"]["mixed_greedy"]["result"]["n"] == 2
+    assert all(not record["eval"][k]["misses"] for k in reference["runs"])
     assert 0 < kernels[2]["launches"] <= chip_smoke.MAX_LENGTH
     for k in kernels:
         assert (REPO / k["source"]).exists()
