@@ -93,7 +93,27 @@ non-zero and prints no result:
    (phase 3's bars). Prints ms/image per run, the host seconds spent in
    ``residual_ink``, ``merge_stroke_fragments`` and ``refine_strokes``
    (wrapped here, not in the package) and one ``--refine 3`` run's time.
-13. eval: the port's evaluator (``eval/run.py``) on the card in bfloat16:
+13. train: the trainer (``train/``) on the card. First, 3 update steps of
+   each model from ``models_demo`` on the batches of
+   ``tests/golden/jax_train_steps.json`` (made again here from the port's
+   generators and held to the file's batch sums), in float32 and bfloat16,
+   against the JAX package's losses there (``scripts/jax_train_golden.py``):
+   float32 step 1 within ``TRAIN_F32_STEP1_RTOL``, later steps within
+   ``TRAIN_F32_RTOL``, bfloat16 within ``TRAIN_BF16_RTOL``. Then the shipped
+   recipe (``--init-from models_demo --ema 0.999``, binarizer ``--line-style
+   letters --ruled 0.5 --narrow 0.5``, captioner ``--glyph-style hand
+   --coord-smoothing 1.0 --scheduled-sampling 0.25 --ss-ramp-frac 0.2``) for
+   ``TRAIN_STEPS`` steps at batch ``TRAIN_BATCH`` with a checkpoint every
+   half, and again to ``TRAIN_RESUME_STEPS``: the rerun must resume at
+   ``TRAIN_STEPS``. Then a ``TRAIN_CACHE_N``-sample glyph cache and
+   ``TRAIN_STEPS`` captioner steps from it, and from-scratch runs of both
+   models at ``models_demo``'s widths, each of which must end (mean of its
+   last ``TRAIN_WINDOW`` losses) below where it began. Every loss finite;
+   steps/s with the loader's wait and the step's seconds for each run, and
+   the ms of one step of each model alone (one fixed batch, no loader
+   thread). Last, the recipe's exported dir through ``cli.run`` on the
+   golden image: both files, one K1 launch.
+14. eval: the port's evaluator (``eval/run.py``) on the card in bfloat16:
    ``evaluate_real`` on the 44 pairs of ``examples/real_data``, greedy and
    with ``redecode_coverage`` 0.9, and ``evaluate_full(style="mixed",
    n=50, seed=0)``, greedy, each against the JAX package's CPU run in
@@ -149,12 +169,28 @@ STROKES_CHAMFER_PX = 6.0  # golden strokes, batched and served (as the tests)
 BATCH_MASK_AGREE = 0.9999  # batched or fused masks against per-image ones
 SERVE_CONCURRENT = 8       # concurrent /derender requests of phase 11
 SERVE_WINDOW_S = 0.1       # the server's batching window in phase 11
-REAL_DATA = ROOT / "examples" / "real_data"  # phase 13's real-ink pairs
-JAX_EVAL = GOLDEN / "jax_cpu_eval.json"      # phase 13's reference
-EVAL_MIXED_N = 50          # synthetic samples of phase 13's mixed run
-EVAL_F1_TOL = 0.002        # |F1 - JAX| allowed in phase 13
-EVAL_COVERAGE_TOL = 0.03   # |coverage - JAX| allowed in phase 13
+REAL_DATA = ROOT / "examples" / "real_data"  # phase 14's real-ink pairs
+JAX_EVAL = GOLDEN / "jax_cpu_eval.json"      # phase 14's reference
+EVAL_MIXED_N = 50          # synthetic samples of phase 14's mixed run
+EVAL_F1_TOL = 0.002        # |F1 - JAX| allowed in phase 14
+EVAL_COVERAGE_TOL = 0.03   # |coverage - JAX| allowed in phase 14
 REFINE_PX = 3.0            # the --refine run of phase 12
+# Phase 13 (train). The golden file fixes the reference steps' batch, seq
+# len, learning rate and step count; the bars are relative to its losses.
+JAX_TRAIN = GOLDEN / "jax_train_steps.json"
+TRAIN_F32_STEP1_RTOL = 1e-5   # float32, the first step's loss
+TRAIN_F32_RTOL = 1e-3         # float32, the later steps' losses
+TRAIN_BF16_RTOL = 2e-2        # bfloat16, every step's loss
+TRAIN_MODELS = MODELS         # the recipe's --init-from
+TRAIN_STEPS = 40              # the recipe, the cache run, from scratch
+TRAIN_RESUME_STEPS = 60       # the recipe again, resumed at TRAIN_STEPS
+TRAIN_BATCH = 16
+TRAIN_SEQ_LEN = 96
+TRAIN_CACHE_N = 256           # samples in the phase's glyph cache
+TRAIN_WINDOW = 10             # steps in each mean of the from-scratch check
+TRAIN_SCRATCH = ("--bin-features", "16,32,64", "--encoder-arch", "resnet18",
+                 "--lr", "1e-3")  # the from-scratch runs: models_demo widths
+TRAIN_WORKERS = 2             # loader threads (the trainer's default)
 
 # H100 SXM published peaks (NVIDIA data sheet), used for bound_ms.
 HBM_BYTES_PER_S = 3.35e12
@@ -950,7 +986,7 @@ def golden_coverage(outputs: dict, img, tol: int) -> float:
 
 
 def against_jax(name: str, got: dict, ref: dict) -> list[str]:
-    """The bars of phase 13 for one run: the misses, as text."""
+    """The bars of phase 14 for one run: the misses, as text."""
     misses = []
     if abs(got["stroke_dtw"] - ref["stroke_dtw"]) > ref["stroke_dtw_ci95"]:
         misses.append(f"{name}: stroke_dtw {got['stroke_dtw']} against JAX "
@@ -963,6 +999,252 @@ def against_jax(name: str, got: dict, ref: dict) -> list[str]:
         misses.append(f"{name}: stroke_coverage {got['stroke_coverage']} "
                       f"against JAX {ref['stroke_coverage']}")
     return misses
+
+
+def train_golden_batches(golden: dict) -> dict:
+    """The reference steps' batches, from the port's generators at the
+    golden file's seed, sizes and styles."""
+    from stroke_derenderer_tpu_torch.data.synthetic import (
+        partitioned_glyph_batches, tile_batches,
+    )
+    import numpy as np
+    g = golden["config"]
+    rng = np.random.default_rng
+    return {
+        "binarizer": list(tile_batches(
+            rng(g["seed"]), g["batch"], 128, 384, n_batches=g["steps"],
+            style=g["line_style"], ruled=g["ruled"], narrow=g["narrow"])),
+        "captioner": list(partitioned_glyph_batches(
+            rng(g["seed"]), g["batch"], g["seq_len"], n_batches=g["steps"],
+            style=g["glyph_style"]))}
+
+
+def batch_sums(batches: dict) -> dict:
+    """Float64 sums of every array of every batch: a fingerprint the golden
+    file records, so that a drift in the generators shows as such."""
+    return {name: [[float(a.astype("float64").sum()) for a in batch]
+                   for batch in bs] for name, bs in batches.items()}
+
+
+def train_updates(models, dtype: str, device, schedule, **cap_kw) -> dict:
+    """One update function per model, warm-started from ``models`` with
+    ``dtype`` compute and AdamW on ``schedule``; ``cap_kw`` goes to the
+    captioner's step. Each takes numpy arrays of one batch and returns the
+    loss as a float (the step's device work done)."""
+    import dataclasses
+
+    import torch
+
+    from stroke_derenderer_tpu_torch.config import (
+        BinarizerConfig, StrokesConfig,
+    )
+    from stroke_derenderer_tpu_torch.train import loop, steps
+    from stroke_derenderer_tpu_torch.weights import (
+        init_binarizer, init_strokes, read_msgpack,
+    )
+    up = lambda a: torch.from_numpy(a).to(device)
+    cfg = dataclasses.replace(BinarizerConfig.from_json(
+        models / "configs_binarizer.json"), compute_dtype=dtype)
+    model = init_binarizer(cfg)
+    model.load_state_dict(loop._unet_layout(cfg).from_tree(read_msgpack(
+        models / "binarizer.msgpack")["params"]))
+    model.to(device)
+    bin_step = steps.make_binarizer_train_step(
+        model, steps.make_optimizer(model), schedule)
+    cfg = dataclasses.replace(StrokesConfig.from_json(
+        models / "configs_strokes.json"), compute_dtype=dtype)
+    cap = steps.Captioner(*init_strokes(cfg))
+    cap.load_state_dict(loop._captioner_layout(cfg).from_tree({
+        k: read_msgpack(models / f"strokes_{k}.msgpack")["params"]
+        for k in ("encoder", "decoder")}))
+    cap.decoder.requires_grad_(True)
+    cap.to(device)
+    cap_step = steps.make_captioner_train_step(
+        cap, steps.make_optimizer(cap), schedule, **cap_kw)
+    return {"binarizer": lambda x, y, i=0: float(bin_step(up(x), up(y))),
+            "captioner": lambda c, t, o, i=0: float(cap_step(
+                up(c), up(t).long(), up(o).long(), step_idx=i))}
+
+
+def golden_train_losses(models, dtype: str, device, batches: dict,
+                        golden: dict) -> dict:
+    """Each model's per-step losses over ``batches``: warm-started from
+    ``models``, ``dtype`` compute, AdamW with the schedule of
+    ``golden["config"]["steps"]`` steps at its learning rate, the captioner
+    with its ``coord_sigma`` and no scheduled sampling."""
+    from stroke_derenderer_tpu_torch.train import steps
+    g = golden["config"]
+    updates = train_updates(models, dtype, device,
+                            lambda c: steps.lr_at(c, g["lr"], g["steps"]),
+                            coord_sigma=g["coord_sigma"])
+    return {name: [updates[name](*batch) for batch in batches[name]]
+            for name in ("binarizer", "captioner")}
+
+
+def step_alone_ms(device, reps: int = 8) -> dict:
+    """ms per update of each model of ``TRAIN_MODELS`` with the recipe's
+    settings (bf16, the captioner with coordinate smoothing and scheduled
+    sampling at its full rate) on one fixed batch of ``TRAIN_BATCH``, no
+    loader thread alive: the step's own cost, beside the loop's."""
+    import numpy as np
+
+    from stroke_derenderer_tpu_torch.data.synthetic import (
+        partitioned_glyph_batches, tile_batches,
+    )
+    updates = train_updates(TRAIN_MODELS, "bfloat16", device, lambda c: 1e-5,
+                            coord_sigma=1.0, sample_prob=0.25,
+                            total_steps=TRAIN_STEPS, ss_ramp_frac=0.2)
+    batches = {
+        "binarizer": next(tile_batches(
+            np.random.default_rng(1), TRAIN_BATCH, style="letters",
+            ruled=0.5, narrow=0.5)),
+        "captioner": next(partitioned_glyph_batches(
+            np.random.default_rng(1), TRAIN_BATCH, TRAIN_SEQ_LEN,
+            style="hand"))}
+    out = {}
+    for name, fn in updates.items():
+        fn(*batches[name], TRAIN_STEPS)  # warm-up
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn(*batches[name], TRAIN_STEPS)
+        out[name] = (time.perf_counter() - t) / reps * 1e3
+    return out
+
+
+def against_train_golden(got: dict, want: dict) -> list[str]:
+    """The bars of the train phase: float32 step 1 within
+    ``TRAIN_F32_STEP1_RTOL`` and later steps within ``TRAIN_F32_RTOL`` of
+    the JAX loss, bfloat16 within ``TRAIN_BF16_RTOL``."""
+    misses = []
+    for dtype, by_model in got.items():
+        for name, losses in by_model.items():
+            for i, (a, b) in enumerate(zip(losses, want[dtype][name])):
+                tol = (TRAIN_BF16_RTOL if dtype == "bfloat16" else
+                       TRAIN_F32_STEP1_RTOL if i == 0 else TRAIN_F32_RTOL)
+                if not abs(a - b) <= tol * abs(b):
+                    misses.append(f"{name} {dtype} step {i + 1}: {a} vs "
+                                  f"JAX {b} (rtol {tol})")
+    return misses
+
+
+def train_rates(res) -> dict:
+    """steps/s of a run and where its seconds went (loader wait against
+    the step, the step's device time included)."""
+    n = len(res.losses)
+    total = res.wait_s + res.step_s
+    return {"steps": n, "start_step": res.start_step,
+            "steps_per_s": n / total if total else None,
+            "wait_s": res.wait_s, "step_s": res.step_s,
+            "wait_share": res.wait_s / total if total else None,
+            "first_loss": res.losses[0] if n else None,
+            "last_loss": res.losses[-1] if n else None}
+
+
+def train_phase(cli, counters: dict, dev) -> dict:
+    """Phase 13: the trainer on the card (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from stroke_derenderer_tpu_torch.data.cache import build_glyph_cache
+    from stroke_derenderer_tpu_torch.io import load_image
+    from stroke_derenderer_tpu_torch.train import loop
+
+    rec: dict = {}
+    golden = json.loads(JAX_TRAIN.read_text())
+    batches = train_golden_batches(golden)
+    flat = lambda sums: [v for k in sorted(sums) for b in sums[k] for v in b]
+    if not np.allclose(flat(batch_sums(batches)),
+                       flat(golden["batch_sums"]), rtol=1e-9, atol=0):
+        raise SystemExit("train: the generators' batches differ from those "
+                         "the golden file was made from")
+    got = {dtype: golden_train_losses(MODELS, dtype, dev, batches, golden)
+           for dtype in ("float32", "bfloat16")}
+    rec["golden"] = {"port": got, "jax_cpu": golden["losses"],
+                     "misses": against_train_golden(got, golden["losses"])}
+    print(json.dumps({"train_golden": got}), flush=True)
+    if rec["golden"]["misses"]:
+        raise SystemExit("train against the JAX reference: "
+                         + "; ".join(rec["golden"]["misses"]))
+
+    work = Path(tempfile.mkdtemp(prefix="train_", dir=tempfile.gettempdir()))
+    recipe = ["--init-from", str(TRAIN_MODELS), "--ema", "0.999",
+              "--batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ_LEN),
+              "--ckpt-every", str(TRAIN_STEPS // 2), "--line-style",
+              "letters", "--ruled", "0.5", "--narrow", "0.5",
+              "--glyph-style", "hand", "--coord-smoothing", "1.0",
+              "--scheduled-sampling", "0.25", "--ss-ramp-frac", "0.2",
+              "--device", str(dev), "--out", str(work / "recipe")]
+    first = loop.train(recipe + ["--steps", str(TRAIN_STEPS)],
+                       TRAIN_WORKERS)
+    again = loop.train(recipe + ["--steps", str(TRAIN_RESUME_STEPS)],
+                       TRAIN_WORKERS)
+    rec["resume_start_steps"] = {k: r.start_step for k, r in again.items()}
+    if set(rec["resume_start_steps"].values()) != {TRAIN_STEPS} or any(
+            len(r.losses) != TRAIN_RESUME_STEPS - TRAIN_STEPS
+            for r in again.values()):
+        raise SystemExit(f"train: the rerun resumed at "
+                         f"{rec['resume_start_steps']}, not {TRAIN_STEPS}")
+    t_cache = time.monotonic()
+    build_glyph_cache(work / "cache", TRAIN_CACHE_N, seq_len=TRAIN_SEQ_LEN,
+                      style="hand", seed=0)
+    rec["cache_build_s"] = time.monotonic() - t_cache
+    cached = loop.train(recipe[:-1] + [
+        str(work / "cached"), "--model", "captioner", "--cache",
+        str(work / "cache"), "--steps", str(TRAIN_STEPS)], TRAIN_WORKERS)
+    scratch = loop.train(list(TRAIN_SCRATCH) + [
+        "--batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ_LEN),
+        "--line-style", "letters", "--cache", str(work / "cache"),
+        "--steps", str(TRAIN_STEPS), "--ckpt-every", str(TRAIN_STEPS),
+        "--device", str(dev), "--out", str(work / "scratch")],
+        TRAIN_WORKERS)
+    rec["rates"] = {"binarizer": train_rates(first["binarizer"]),
+                    "captioner": train_rates(first["captioner"]),
+                    "captioner-cache": train_rates(cached["captioner"]),
+                    "binarizer-resumed": train_rates(again["binarizer"]),
+                    "captioner-resumed": train_rates(again["captioner"]),
+                    "binarizer-scratch": train_rates(scratch["binarizer"]),
+                    "captioner-scratch": train_rates(scratch["captioner"])}
+    runs = {"first": first, "again": again, "cached": cached,
+            "scratch": scratch}
+    bad = [f"{name} {k}" for name, rs in runs.items()
+           for k, r in rs.items() if not np.all(np.isfinite(r.losses))]
+    if bad:
+        raise SystemExit(f"train: losses not finite in {bad}")
+    rec["scratch_means"] = {}
+    for k, r in scratch.items():
+        head = float(np.mean(r.losses[:TRAIN_WINDOW]))
+        tail = float(np.mean(r.losses[-TRAIN_WINDOW:]))
+        rec["scratch_means"][k] = [head, tail]
+        if not tail < head:
+            raise SystemExit(f"train: from scratch the {k}'s loss did not "
+                             f"fall ({head} -> {tail})")
+    for name, r in rec["rates"].items():
+        print(json.dumps({"train_rate": name} | r), flush=True)
+    rec["step_alone_ms"] = step_alone_ms(dev)
+    print(json.dumps({"train_step_alone_ms": rec["step_alone_ms"]}),
+          flush=True)
+
+    # The exported model dir through the CLI on the golden image.
+    for mod in counters.values():
+        mod.launch_count = 0
+    binarizer, estimator = cli.initialize_sessions(work / "recipe",
+                                                   device=dev)
+    img = load_image(GOLDEN / "golden_input.png")
+    done = cli.run([(img, "golden_input")], binarizer, estimator,
+                   work / "cli")
+    torch.cuda.synchronize()
+    launches = {n: m.launch_count for n, m in counters.items()}
+    outputs = [work / "cli" / f"golden_input_{s}"
+               for s in ("BINARIZED.png", "STROKES.json")]
+    rec["cli"] = {"done": done, "launches": launches,
+                  "files": [p.exists() for p in outputs]}
+    if done != 1 or not all(rec["cli"]["files"]) or launches != {
+            "K1": 1, "K2": 0, "K3": 0}:
+        raise SystemExit(f"train: the exported dir through cli.run: "
+                         f"{rec['cli']}")
+    import shutil
+    shutil.rmtree(work, ignore_errors=True)
+    return rec
 
 
 def main(argv=None) -> int:
@@ -1450,7 +1732,19 @@ def main(argv=None) -> int:
            f"{cover['real-beam']:.4f}); K1 on {seqs['residual'].shape[0]} "
            f"residual rows passed")
 
-    # 13. the evaluator against the JAX package's CPU run ---------------------
+    # 13. the trainer ---------------------------------------------------------
+    t0 = time.monotonic()
+    train_rec = train_phase(cli, counters, dev)
+    k1_train = train_rec["cli"]["launches"]["K1"]
+    _phase("train", t0, "losses within the JAX reference's bars; steps/s "
+           + ", ".join(f"{k} {train_rec['rates'][k]['steps_per_s']:.2f} "
+                       f"(loader wait {train_rec['rates'][k]['wait_share']:.0%})"
+                       for k in ("binarizer", "captioner", "captioner-cache"))
+           + f"; resumed at {train_rec['resume_start_steps']}; the exported "
+           f"dir served with {k1_train} K1 launch")
+    record["train"] = train_rec
+
+    # 14. the evaluator against the JAX package's CPU run ---------------------
     t0 = time.monotonic()
     from stroke_derenderer_tpu_torch.eval import run as eval_run
     reference = json.loads(JAX_EVAL.read_text())["runs"]
@@ -1494,7 +1788,7 @@ def main(argv=None) -> int:
         "K1": {"main": launches, "batch": batch_rec["launches"]["K1"],
                "serve": k1_served, "real": k1_real, "batch-real": k1_breal,
                "refine": real_rec["refine"]["launches"]["K1"],
-               "eval": eval_launches["K1"]},
+               "train": k1_train, "eval": eval_launches["K1"]},
         "K2": {"main-beam": beam_launches,
                "batch-beam": bbeam_rec["launches"]["K2"],
                "real-beam": k2_rbeam},

@@ -4,7 +4,8 @@
         -input DIR --output DIR [--device cuda|cpu] \
         [--decode greedy|beam] [--beam-size K] [--batch] [--fused] \
         [--no-strokes] [--svg] [--preset reference|real] [--redecode C] \
-        [--redecode-passes K] [--refine PX]
+        [--redecode-passes K] [--refine PX] [--host-partition]
+    python -m stroke_derenderer_tpu_torch.cli --init-models DIR
 
 For every PNG in the input folder: binarize, save ``<name>_BINARIZED.png``,
 estimate strokes, save ``<name>_STROKES.json`` rescaled to the input's
@@ -16,7 +17,11 @@ in one device batch and every image's glyphs in one, the same files, and
 the prints give the amortized time per image. ``--preset real`` (residual
 re-decode at coverage 0.9), ``--redecode``, ``--redecode-passes`` and
 ``--refine`` set the residual passes and the ink snap; explicit flags win
-over the preset. Runs on the card unless ``--device cpu`` is given.
+over the preset. ``--host-partition`` builds the glyph crops on the host
+instead of the device (the same crops). ``--init-models DIR`` writes a
+randomly initialized model dir; weights missing from ``-models`` are drawn
+at random with a warning. Runs on the card unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -41,8 +46,10 @@ from stroke_derenderer_tpu_torch.pipeline.strokes import StrokeEstimator
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         description="Handwriting derenderer (PyTorch / CUDA)")
-    parser.add_argument("-models", required=True,
-                        help="Folder holding the model files.")
+    parser.add_argument("-models", default=None,
+                        help="Folder holding the model files (weights "
+                             "missing there are drawn at random, with a "
+                             "warning).")
     parser.add_argument("-input", default="./images/input",
                         help="Folder holding the input PNG images.")
     parser.add_argument("-output", "--output", default="./images/output",
@@ -92,6 +99,13 @@ def parse_args(argv=None):
                         help="Binarize only.")
     parser.add_argument("--svg", action="store_true",
                         help="Also write <name>_STROKES.svg.")
+    parser.add_argument("--init-models", default=None, metavar="DIR",
+                        help="Write a randomly initialized model dir and "
+                             "exit.")
+    parser.add_argument("--host-partition", action="store_true",
+                        help="Build the glyph crops on the host "
+                             "(pipeline.strokes.compute_partitions) and "
+                             "upload them.")
     return parser.parse_args(argv)
 
 
@@ -105,24 +119,34 @@ def initialize_sessions(folderpath, device=None,
     and ``bin_overrides`` are ``StrokesConfig`` and ``BinarizerConfig``
     fields that win over the config JSON (``--decode``, ``--beam-size``,
     ``--preset``, ``--redecode``, ``--redecode-passes``, ``--refine``);
-    ``fused`` is the binarizer's mode (``--fused``)."""
-    folder = Path(folderpath)
+    ``fused`` is the binarizer's mode (``--fused``). Weight files missing
+    from the folder (or no folder at all) fall back to random weights with
+    a warning, as in the JAX CLI."""
+    folder = Path(folderpath) if folderpath else None
 
     def _opt(name):
-        return folder / name if (folder / name).exists() else None
+        p = folder / name if folder else None
+        return p if (p and p.exists()) else None
 
     bin_cfg = BinarizerConfig.from_json(_opt("configs_binarizer.json"))
     if bin_overrides:
         bin_cfg = dataclasses.replace(bin_cfg, **bin_overrides)
-    binarizer = Binarizer(bin_cfg, folder / "binarizer.msgpack",
-                          device=device, fused=fused)
+    bin_weights = _opt("binarizer.msgpack")
+    if folder and not bin_weights:
+        print(f"[warn] {folder}/binarizer.msgpack not found; using random "
+              "init")
+    binarizer = Binarizer(bin_cfg, bin_weights, device=device, fused=fused)
     se_cfg = StrokesConfig.from_json(_opt("configs_strokes.json"))
     if se_overrides:
         se_cfg = dataclasses.replace(se_cfg, **se_overrides)
+    enc_w, dec_w = (_opt("strokes_encoder.msgpack"),
+                    _opt("strokes_decoder.msgpack"))
+    if folder and not (enc_w and dec_w):
+        print(f"[warn] stroke model weights not found in {folder}; using "
+              "random init")
     estimator = StrokeEstimator(
-        se_cfg,
-        {"encoder": folder / "strokes_encoder.msgpack",
-         "decoder": folder / "strokes_decoder.msgpack"}, device=device)
+        se_cfg, {"encoder": enc_w, "decoder": dec_w} if enc_w and dec_w
+        else None, device=device)
     return binarizer, estimator
 
 
@@ -236,11 +260,18 @@ def strokes_overrides(args) -> dict:
         ov["redecode_passes"] = args.redecode_passes
     if args.refine is not None:
         ov["refine_snap"] = args.refine
+    if args.host_partition:
+        ov["device_partition"] = False
     return ov
 
 
 def entrypoint(argv=None) -> int:
     args = parse_args(argv)
+    if args.init_models:
+        from stroke_derenderer_tpu_torch.weights import materialize_model_dir
+        materialize_model_dir(args.init_models)
+        print(f"initialized model dir at {args.init_models}")
+        return 0
     imgs = load_images(sorted(Path(args.input).glob("*.png")))
     se_overrides = strokes_overrides(args)
     binarizer, estimator = initialize_sessions(

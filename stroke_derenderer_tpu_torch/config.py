@@ -34,6 +34,7 @@ class BinarizerConfig:
     channels: int = 3
     overlap: int = 128 // 2
     bin_thr: float = 0.5
+    minibatch: int = 8
     features: tuple[int, ...] = (32, 64, 128, 256)
     bottleneck: int = 512
     norm: str = "group"
@@ -51,12 +52,22 @@ class BinarizerConfig:
     def __post_init__(self):
         object.__setattr__(self, "features", tuple(self.features))
 
+    # Execution policy, not architecture: left out of exported model dirs.
+    EXEC_FIELDS = ("batch_bucket", "fused_batch_min", "quant", "io_chunks")
+
     @classmethod
     def from_json(cls, configs_path: str | Path | None = None,
                   **params) -> "BinarizerConfig":
         merged = _load_params(configs_path, params)
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in merged.items() if k in known})
+
+    def export_dict(self) -> dict:
+        """The fields of a model dir's ``configs_binarizer.json``."""
+        d = dataclasses.asdict(self)
+        for k in self.EXEC_FIELDS:
+            d.pop(k, None)
+        return d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,9 +119,25 @@ class StrokesConfig:
     def tgt_shape(self) -> tuple[int, int]:
         return (self.image_size, self.image_size)
 
+    # Execution policy, not architecture: left out of exported model dirs
+    # (the JAX package's list, which also names its own kernel fields).
+    EXEC_FIELDS = ("decode", "beam_size", "length_penalty", "glyph_bucket",
+                   "device_partition", "fused_decode", "fused_block_b",
+                   "redecode_coverage", "redecode_tol", "redecode_passes",
+                   "redecode_join_tol",
+                   "quant", "io_chunks", "refine_snap", "gid_rle")
+
     @classmethod
     def from_json(cls, configs_path: str | Path | None = None,
                   **params) -> "StrokesConfig":
         merged = _load_params(configs_path, params)
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in merged.items() if k in known})
+
+    def export_dict(self) -> dict:
+        """The fields of a model dir's ``configs_strokes.json``."""
+        d = dataclasses.asdict(self)
+        for k in self.EXEC_FIELDS:
+            d.pop(k, None)
+        d["mean"], d["std"] = list(d["mean"]), list(d["std"])
+        return d

@@ -1,14 +1,15 @@
 """Letterform handwriting: per-letter stroke templates and words made of
 them, copied from the JAX ``data/letters.py`` (host numpy) for the
-evaluator's ``letters`` and ``hand`` styles.
+evaluator's and the trainer's ``letters`` and ``hand`` styles.
 
 ``LETTER_TEMPLATES`` holds each lowercase letter, capital and digit as 1-3
 polylines in a unit em box (y grows downward; baseline 0.80, x-height band
 [0.40, 0.80], ascenders ~0.08, descenders ~1.0). ``sample_word`` draws a
 word with english-like letter frequencies, ``word_strokes`` lays it out on
 a canvas with slant, jitter and semi-cursive joins under a token budget
-(2 tokens a vertex, a BOS between strokes, an EOS). Both draw from the
-generator in the JAX package's order.
+(2 tokens a vertex, a BOS between strokes, an EOS), ``line_of_words``
+fills a binarizer training line with words. All draw from the generator in
+the JAX package's order.
 """
 
 from __future__ import annotations
@@ -375,3 +376,27 @@ def word_strokes(rng: np.random.Generator, word: str,
         out.append((xs, ys))
         budget -= cost
     return out  # may be [] when token_budget < 7 — callers must handle
+
+
+def line_of_words(rng: np.random.Generator, shape: tuple[int, int],
+                  max_words: int = 6) -> list:
+    """Fill a (h, w) line canvas with left-to-right words (binarizer
+    training lines; no token budget — masks only)."""
+    h, w = shape
+    strokes: list = []
+    x0 = float(rng.uniform(0, 0.05 * w))
+    n_words = int(rng.integers(1, max_words + 1))
+    for _ in range(n_words):
+        word = sample_word(rng)
+        # Estimate word width at a nominal em to slice a sub-canvas.
+        adv = sum(LETTER_TEMPLATES[c][0] for c in word) + 0.1 * len(word)
+        em = rng.uniform(0.6, 0.95) * h
+        width = min(adv * em + 4, w - x0)
+        if width < 0.25 * h:
+            break
+        ws = word_strokes(rng, word, (h, int(width)), token_budget=10_000)
+        strokes.extend((x + x0, y) for x, y in ws)
+        x0 += width + rng.uniform(0.1, 0.5) * h
+        if x0 >= w - 0.25 * h:
+            break
+    return strokes

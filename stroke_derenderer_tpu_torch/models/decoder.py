@@ -21,6 +21,12 @@ an order of its own, and so does any kernel, so a one-ulp difference in a
 bfloat16 rounding could appear anywhere and, fed back through the greedy
 loop, change later tokens. Summed in float64, the rounded result no longer
 depends on the order, so the fused kernel and this step agree bit for bit.
+
+Training takes :meth:`AttentiveDecoder.forward`, the teacher-forced pass of
+the JAX ``__call__``: the same step with plain products in the compute
+dtype (float32 accumulation, as flax's), each weight cast once per
+forward. The parameters are registered without gradients, so that the
+inference entries build no autograd graph; the trainer turns them on.
 """
 
 from __future__ import annotations
@@ -99,6 +105,52 @@ class AttentiveDecoder(nn.Module):
         for name, shape in shapes.items():
             self.register_parameter(
                 name, nn.Parameter(torch.zeros(shape), requires_grad=False))
+
+    def forget_packed(self) -> None:
+        """Drop the kernels' packed copies of the weights (K1's
+        ``step_weights``, K3's ``attention_weights``). Their caches key on
+        each parameter's storage and version counter, which a fused
+        optimizer step does not bump, so the trainer calls this after every
+        update."""
+        self.__dict__.pop("_step_weights", None)
+        self.__dict__.pop("_attention_weights", None)
+
+    def forward(self, enc_seq, tokens):
+        """Teacher-forced training forward: (B, P, E) encoder sequence (any
+        float dtype, float32 from the encoder), (B, T) int tokens -> (B, T,
+        V) float32 logits, one step per token as the JAX ``__call__`` scans
+        it. Rounding as flax in the compute dtype: each Dense's product and
+        bias add; the attention softmax and the attended sum over the
+        encoder sequence as given in float32; the head in float32."""
+        dt = self.dtype
+        w = {k: getattr(self, k).to(dt) for k in (
+            "enc_att_w", "enc_att_b", "init_h_w", "init_h_b", "init_c_w",
+            "init_c_b", "watt", "batt", "v", "bv", "wf", "bf", "wx", "wh",
+            "blstm", "emb")}
+        enc_f32 = enc_seq.float()
+        enc_proj = enc_seq.to(dt) @ w["enc_att_w"] + w["enc_att_b"]
+        mean = enc_f32.mean(dim=1).to(enc_seq.dtype).to(dt)
+        h = mean @ w["init_h_w"] + w["init_h_b"]
+        c = mean @ w["init_c_w"] + w["init_c_b"]
+        embs = w["emb"][tokens]
+        v = w["v"][:, None]
+        hdim = h.shape[-1]
+        logits = []
+        for t in range(tokens.shape[1]):
+            att = torch.relu(enc_proj + (h @ w["watt"] + w["batt"])[:, None])
+            alpha = torch.softmax((att @ v + w["bv"]).float(), dim=1)
+            awe = torch.bmm(alpha.transpose(1, 2), enc_f32)[:, 0]
+            gate = torch.sigmoid(h @ w["wf"] + w["bf"])
+            x = torch.cat([embs[:, t], (gate.float() * awe).to(dt)], dim=-1)
+            gates = x @ w["wx"] + (h @ w["wh"] + w["blstm"])
+            i = torch.sigmoid(gates[:, :hdim])
+            f = torch.sigmoid(gates[:, hdim:2 * hdim])
+            g = torch.tanh(gates[:, 2 * hdim:3 * hdim])
+            o = torch.sigmoid(gates[:, 3 * hdim:])
+            c = f * c + i * g
+            h = o * torch.tanh(c)
+            logits.append(h.float() @ self.wfc + self.bfc)
+        return torch.stack(logits, dim=1)
 
     def weights(self, dtype: torch.dtype | None = None) -> dict:
         """The step's weights cast to ``dtype`` (the vocabulary head stays

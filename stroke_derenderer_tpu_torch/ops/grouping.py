@@ -7,7 +7,8 @@ JAX ``ops/grouping.py`` with the reference's quirks kept on purpose:
     contain, and the containment scan stops at the first interval that
     starts past the absorber;
   * greedy packing measures the first group's width from column 0, and its
-    first group may be empty (dropped afterwards).
+    first group may be empty (dropped afterwards);
+  * a group's crops are added onto one canvas and re-binarized (> 0).
 """
 
 from __future__ import annotations
@@ -34,6 +35,12 @@ def get_binarized_islands(img_bin: np.ndarray, margin: int = 2) -> list[Island]:
         islands.append(((labels[ys:yf, xs:xf] == n).astype(np.uint8),
                         (ys, xs)))
     return islands
+
+
+def sort_islands(islands: list[Island]) -> list[Island]:
+    """Left to right by the crop's left column (a stable sort)."""
+    lefts = np.asarray([isl[1][1] for isl in islands])
+    return [islands[i] for i in np.argsort(lefts, kind="stable")]
 
 
 def group_intervals(intervals: list[tuple[int, int]],
@@ -104,6 +111,29 @@ def _transitive_groups(edges: dict[int, list[int]]) -> list[list[int]]:
         done[f] = True
         groups.append(group)
     return groups
+
+
+def group_islands(islands: list[Island],
+                  target_shape: tuple[int, int]) -> list[Island]:
+    """Islands sorted left to right, grouped by :func:`group_intervals` to
+    ``target_shape``'s width, each group composited onto one canvas (the
+    crops added, then re-binarized)."""
+    islands = sort_islands(islands)
+    intervals = [(left, left + crop.shape[1]) for crop, (_, left) in islands]
+    out: list[Island] = []
+    for inds in group_intervals(intervals, target_shape[1]):
+        subs = [islands[k] for k in inds]
+        top = int(min(t for _, (t, _) in subs))
+        left = int(min(l for _, (_, l) in subs))
+        bottom = int(max(t + c.shape[0] for c, (t, _) in subs))
+        right = int(max(l + c.shape[1] for c, (_, l) in subs))
+        canvas = np.zeros((bottom - top, right - left), dtype=np.uint8)
+        for crop, (t, l) in subs:
+            ch, cw = crop.shape[:2]
+            canvas[t - top:t - top + ch, l - left:l - left + cw] += \
+                crop.astype(np.uint8)
+        out.append(((canvas > 0).astype(np.uint8), (top, left)))
+    return out
 
 
 def get_pad_edges(n: int) -> tuple[int, int]:

@@ -16,3 +16,11 @@ def minmax_normalize_np(img: np.ndarray, lo: float = 0.0,
     if img.dtype == np.uint8:
         out = np.clip(np.rint(out), 0, 255).astype(np.uint8)
     return out
+
+
+def imagenet_normalize_np(img_u8: np.ndarray, mean, std) -> np.ndarray:
+    """(H, W) uint8 -> (H, W, 3) float32 model input: ``(x / 255 - mean) /
+    std`` per channel, NHWC."""
+    x = img_u8.astype(np.float32) / 255.0
+    return ((x[..., None] - np.asarray(mean, np.float32))
+            / np.asarray(std, np.float32)).astype(np.float32)

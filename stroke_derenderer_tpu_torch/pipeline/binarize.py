@@ -29,7 +29,9 @@ from stroke_derenderer_tpu_torch.ops.tiling import (
     TilePlan, cut_tiles, cut_tiles_np, plan_tiles, stitch_tiles,
     stitch_tiles_np,
 )
-from stroke_derenderer_tpu_torch.weights import from_flax_unet, read_msgpack
+from stroke_derenderer_tpu_torch.weights import (
+    from_flax_unet, init_binarizer, read_msgpack,
+)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -62,20 +64,24 @@ def _prep_line(image: np.ndarray, cfg: BinarizerConfig,
 class Binarizer:
     def __init__(self, config: BinarizerConfig, weights_path, device=None,
                  fused: bool = False):
-        """``weights_path``: the UNet's flax msgpack file. ``fused``: cut
-        and stitch on the device (one program per tile plan), and every
-        width group of ``binarize_images`` through the batched fused
-        program."""
+        """``weights_path``: the UNet's flax msgpack file, or None for
+        random weights (``weights.init_binarizer``, seed 0).
+        ``fused``: cut and stitch on the device (one program per tile
+        plan), and every width group of ``binarize_images`` through the
+        batched fused program."""
         self.config = cfg = config
         if cfg.norm != "group" or cfg.quant != "none":
             raise NotImplementedError(
                 f"norm={cfg.norm!r}, quant={cfg.quant!r}: only GroupNorm "
                 "and unquantized weights are ported (ROADMAP.md)")
         self.device = resolve_device(device)
-        model = AttentionUNet(cfg.features, cfg.bottleneck, cfg.channels,
-                              dtype=dtype_of(cfg.compute_dtype))
-        model.load_state_dict(from_flax_unet(read_msgpack(weights_path),
-                                             len(cfg.features)))
+        if weights_path is None:
+            model = init_binarizer(cfg)
+        else:
+            model = AttentionUNet(cfg.features, cfg.bottleneck, cfg.channels,
+                                  dtype=dtype_of(cfg.compute_dtype))
+            model.load_state_dict(from_flax_unet(read_msgpack(weights_path),
+                                                 len(cfg.features)))
         self.model = model.to(self.device).eval()
         self.fused = fused
 

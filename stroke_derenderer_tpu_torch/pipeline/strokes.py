@@ -1,9 +1,12 @@
-"""Stroke estimation on the device-partition path: mask -> glyph groups ->
-crops on the device -> ResNet encoder -> fused greedy (K1) or beam (K2)
-decode -> strokes.
+"""Stroke estimation: mask -> glyph groups -> crops -> ResNet encoder ->
+fused greedy (K1) or beam (K2) decode -> strokes.
 
 Counterpart of ``StrokeEstimator.process_image`` and ``process_images`` of
-the JAX ``pipeline/strokes.py`` with ``device_partition`` on.
+the JAX ``pipeline/strokes.py``. With ``device_partition`` on (the
+default) the host ships a group-id image and the crops are built on the
+device; with it off (``--host-partition``) :func:`compute_partitions` builds
+them on the host, as training data is built, and the uint8 crops are
+uploaded.
 ``process_images`` runs the glyphs of every image through one crop gather,
 one encoder call and one decode launch (per ``config.io_chunks`` chunk).
 With ``redecode_coverage`` > 0, ink that the strokes leave uncovered is
@@ -32,15 +35,19 @@ from stroke_derenderer_tpu_torch.models.decoder import AttentiveDecoder
 from stroke_derenderer_tpu_torch.models.encoder import (
     ARCHS, ResNetEncoder, encode_postprocess,
 )
+from stroke_derenderer_tpu_torch.ops import grouping
 from stroke_derenderer_tpu_torch.ops.device_partition import (
     PartitionPlan, gather_crops, gather_crops_batched, plan_partitions,
+)
+from stroke_derenderer_tpu_torch.ops.normalize import (
+    imagenet_normalize_np, minmax_normalize_np,
 )
 from stroke_derenderer_tpu_torch.ops.strokes import (
     decode_tokens_batch, merge_stroke_fragments, refine_strokes,
     sort_strokes,
 )
 from stroke_derenderer_tpu_torch.weights import (
-    from_flax_decoder, from_flax_encoder, read_msgpack,
+    from_flax_decoder, from_flax_encoder, init_strokes, read_msgpack,
 )
 
 
@@ -68,11 +75,59 @@ def residual_ink(mask: np.ndarray, strokes, tol: int = 2,
     return resid if resid.any() else None
 
 
+def normalize_crops(x: torch.Tensor, mean, std,
+                    rint: bool = False) -> torch.Tensor:
+    """(N, H, W) float32 crops in 0..255 -> normalized (N, H, W, 3): per-crop
+    min-max rescale to 0..255 (rounded and clipped as a uint8 round trip
+    would with ``rint``), then ImageNet mean/std."""
+    mean = torch.tensor(mean, device=x.device)
+    std = torch.tensor(std, device=x.device)
+    mn = x.amin(dim=(1, 2), keepdim=True)
+    mx = x.amax(dim=(1, 2), keepdim=True)
+    x = torch.where(mx > mn,
+                    (x - mn) * (255.0 / torch.clamp(mx - mn, min=1e-12)),
+                    torch.zeros_like(x))
+    if rint:
+        x = torch.clamp(torch.round(x), 0.0, 255.0)
+    return (x[..., None] / 255.0 - mean) / std
+
+
+def compute_partitions(img_bin: np.ndarray, cfg: StrokesConfig) -> list[dict]:
+    """The host partition of a binarized (H, W) image: islands grouped to
+    the line height, each group min-max normalized, resized and padded into
+    the crop, and its transforms. Used by the ``--host-partition`` path and
+    by the training data, so that training crops are inference crops."""
+    img_bin = np.asarray(img_bin)
+    if img_bin.ndim == 3:
+        img_bin = img_bin[:, :, 0]
+    islands = grouping.get_binarized_islands(img_bin.astype(np.uint8),
+                                             margin=cfg.margin)
+    if not islands:
+        return []
+    img_h = img_bin.shape[0]
+    partitions = []
+    for canvas, (top, left) in grouping.group_islands(islands,
+                                                      (img_h, img_h)):
+        padded, ratio, (x2, y2) = grouping.resize_and_pad_np(
+            minmax_normalize_np(canvas), cfg.tgt_shape, margin=1,
+            pad_value=0)
+        partitions.append({
+            "image": padded,                      # (S, S) uint8
+            "image_input": imagenet_normalize_np(
+                minmax_normalize_np(padded), cfg.mean, cfg.std),
+            "translate1": (left, top),            # (x, y)
+            "ratio": ratio,
+            "translate2": (x2, y2),               # (x, y)
+        })
+    return partitions
+
+
 class StrokeEstimator:
-    def __init__(self, config: StrokesConfig, weights_paths: dict,
+    def __init__(self, config: StrokesConfig, weights_paths: dict | None,
                  device=None):
         """``weights_paths``: {"encoder": path, "decoder": path} to the
-        networks' flax msgpack files."""
+        networks' flax msgpack files, or None for random weights
+        (``weights.init_strokes``, seed 0)."""
         self.config = cfg = config
         if cfg.decode not in ("greedy", "beam"):
             raise ValueError(f"decode must be 'greedy' or 'beam', got "
@@ -80,21 +135,24 @@ class StrokeEstimator:
         unsupported = [name for name, bad in (
             ("projection_dim", cfg.projection_dim != 0),
             ("encoder_norm", cfg.encoder_norm != "group"),
-            ("quant", cfg.quant != "none"),
-            ("device_partition", not cfg.device_partition)) if bad]
+            ("quant", cfg.quant != "none")) if bad]
         if unsupported:
             raise NotImplementedError(
                 f"not ported yet (ROADMAP.md): {unsupported}")
         self.device = resolve_device(device)
         dtype = dtype_of(cfg.compute_dtype)
-        encoder = ResNetEncoder(cfg.encoder_arch, dtype=dtype)
-        decoder = AttentiveDecoder(
-            cfg.vocab_size, cfg.embed_dim, cfg.attention_dim,
-            cfg.decoder_dim, encoder.out_features, dtype=dtype)
-        encoder.load_state_dict(from_flax_encoder(
-            read_msgpack(weights_paths["encoder"]), ARCHS[cfg.encoder_arch][0]))
-        decoder.load_state_dict(from_flax_decoder(
-            read_msgpack(weights_paths["decoder"])))
+        if weights_paths is None:
+            encoder, decoder = init_strokes(cfg)
+        else:
+            encoder = ResNetEncoder(cfg.encoder_arch, dtype=dtype)
+            decoder = AttentiveDecoder(
+                cfg.vocab_size, cfg.embed_dim, cfg.attention_dim,
+                cfg.decoder_dim, encoder.out_features, dtype=dtype)
+            encoder.load_state_dict(from_flax_encoder(
+                read_msgpack(weights_paths["encoder"]),
+                ARCHS[cfg.encoder_arch][0]))
+            decoder.load_state_dict(from_flax_decoder(
+                read_msgpack(weights_paths["decoder"])))
         self.encoder = encoder.to(self.device).eval()
         self.decoder = decoder.to(self.device).eval()
         self.compute_dtype = dtype
@@ -107,14 +165,7 @@ class StrokeEstimator:
     def _normalize_raw(self, x: torch.Tensor) -> torch.Tensor:
         """(N, H, W) float32 crops in 0..255 -> normalized (N, H, W, 3):
         per-crop min-max rescale, then ImageNet mean/std."""
-        mean = torch.tensor(self.config.mean, device=x.device)
-        std = torch.tensor(self.config.std, device=x.device)
-        mn = x.amin(dim=(1, 2), keepdim=True)
-        mx = x.amax(dim=(1, 2), keepdim=True)
-        x = torch.where(mx > mn,
-                        (x - mn) * (255.0 / torch.clamp(mx - mn, min=1e-12)),
-                        torch.zeros_like(x))
-        return (x[..., None] / 255.0 - mean) / std
+        return normalize_crops(x, self.config.mean, self.config.std)
 
     @torch.inference_mode()
     def _encode_and_decode(self, crops: torch.Tensor,
@@ -196,7 +247,19 @@ class StrokeEstimator:
             np.asarray([partitions[i]["translate2"] for i in range(n)]))
         return sort_strokes([s for glyph in per_glyph for s in glyph])
 
+    def _host_crops(self, partitions: list[dict]) -> torch.Tensor:
+        """The host partitions' uint8 crops on the device as float32."""
+        crops = np.stack([p["image"] for p in partitions]).astype(np.uint8)
+        return torch.from_numpy(crops).to(self.device).float()
+
     def _process_image_once(self, img_bin, max_length: int | None):
+        if not self.config.device_partition:
+            partitions = compute_partitions(img_bin, self.config)
+            if not partitions:
+                return []
+            preds = self._encode_and_decode(self._host_crops(partitions),
+                                            max_length)
+            return self.process_tokens(preds.cpu().numpy(), partitions)
         plan = plan_partitions(np.asarray(img_bin), self.config.margin,
                                self.config.image_size)
         if plan is None:
@@ -210,6 +273,8 @@ class StrokeEstimator:
         ``config.io_chunks`` chunk, every chunk queued on the device before
         the first tokens are downloaded."""
         imgs_bin = list(imgs_bin)
+        if not self.config.device_partition:
+            return self._process_images_host(imgs_bin, max_length)
         nch = max(1, -(-len(imgs_bin) // self.config.io_chunks))
         pending = []
         for c0 in range(0, len(imgs_bin), nch):
@@ -227,6 +292,24 @@ class StrokeEstimator:
                 out.append(self.process_tokens(preds[ofs:ofs + n],
                                                p.partitions) if n else [])
                 ofs += n
+        return out
+
+    def _process_images_host(self, imgs_bin, max_length: int | None):
+        """:meth:`_process_images_once` on the host partitions: every
+        image's crops in one upload, one encoder call and one decode
+        launch."""
+        all_parts = [compute_partitions(m, self.config) for m in imgs_bin]
+        counts = [len(p) for p in all_parts]
+        if sum(counts) == 0:
+            return [[] for _ in imgs_bin]
+        preds = self._encode_and_decode(
+            self._host_crops([p for parts in all_parts for p in parts]),
+            max_length).cpu().numpy()
+        out, ofs = [], 0
+        for parts, n in zip(all_parts, counts):
+            out.append(self.process_tokens(preds[ofs:ofs + n], parts)
+                       if n else [])
+            ofs += n
         return out
 
     def _residual_for(self, img_bin, strokes):

@@ -1,22 +1,33 @@
-"""Model weights: a reader for flax msgpack files and ``from_flax`` for each
-network.
+"""Model weights: a reader and a writer for flax msgpack files,
+``from_flax`` and ``to_flax`` for each network, random init, and model
+directories.
 
 A model directory holds flax parameter trees written by
 ``flax.serialization.to_bytes``: msgpack maps of str keys whose leaves are
 msgpack ext type 1, itself the msgpack triple (shape, dtype name, raw C-order
 bytes). :func:`read_msgpack` decodes that in pure Python, slicing the raw
-bytes straight into numpy arrays, with no msgpack package.
+bytes straight into numpy arrays, with no msgpack package;
+:func:`write_msgpack` writes the same layout (keys sorted, as flax writes
+them), so either package loads what the other wrote.
 
 ``from_flax_*`` turn such a tree (numpy leaves) into the ``state_dict`` of
 the port's module, with the layout rules of the JAX package's
 ``weights/graph_export.py``: Conv HWIO -> OIHW, ConvTranspose flipped in
 space and laid out (in, out, kh, kw), and the decoder's dense kernels kept
 (in, out) with the LSTM's gates packed as ``kernels/fused_decode.py`` packs
-them (``pack_decoder_weights``).
+them (``pack_decoder_weights``). ``to_flax_*`` are their exact inverses.
+
+:func:`init_binarizer` and :func:`init_strokes` draw fresh parameters with
+flax's initializer families from a seeded ``torch.Generator``: truncated
+lecun-normal kernels, orthogonal LSTM hidden kernels, zero biases, unit
+GroupNorm scales and a normal(1/sqrt(D)) embedding (the numbers differ from
+the JAX package's, the distributions do not).
 """
 
 from __future__ import annotations
 
+import json
+import math
 import struct
 from pathlib import Path
 
@@ -204,3 +215,300 @@ def from_flax_decoder(tree: dict) -> dict:
         "blstm": _t(np.concatenate([lstm[f"h{g}"]["bias"] for g in gates])),
         "wfc": _t(p["fc"]["kernel"]), "bfc": _t(p["fc"]["bias"]),
     }
+
+
+# --------------------------------------------------------------- writing
+
+def _pack(obj, out: list) -> None:
+    """Append the msgpack encoding of ``obj`` (dict with str keys, list or
+    tuple, str, int, bytes, numpy array) to ``out``, each in its shortest
+    form, as msgpack's packer chooses it."""
+    if isinstance(obj, dict):
+        n = len(obj)
+        out.append(bytes([0x80 | n]) if n <= 15 else
+                   struct.pack(">BH", 0xde, n) if n < 1 << 16 else
+                   struct.pack(">BI", 0xdf, n))
+        for k in sorted(obj):
+            _pack(str(k), out)
+            _pack(obj[k], out)
+    elif isinstance(obj, (list, tuple)):
+        n = len(obj)
+        out.append(bytes([0x90 | n]) if n <= 15 else
+                   struct.pack(">BH", 0xdc, n) if n < 1 << 16 else
+                   struct.pack(">BI", 0xdd, n))
+        for x in obj:
+            _pack(x, out)
+    elif isinstance(obj, str):
+        b = obj.encode("utf-8")
+        n = len(b)
+        out.append(bytes([0xa0 | n]) if n <= 31 else
+                   struct.pack(">BB", 0xd9, n) if n < 1 << 8 else
+                   struct.pack(">BH", 0xda, n) if n < 1 << 16 else
+                   struct.pack(">BI", 0xdb, n))
+        out.append(b)
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        n = len(obj)
+        out.append(struct.pack(">BB", 0xc4, n) if n < 1 << 8 else
+                   struct.pack(">BH", 0xc5, n) if n < 1 << 16 else
+                   struct.pack(">BI", 0xc6, n))
+        out.append(bytes(obj))
+    elif isinstance(obj, (bool, np.bool_)):
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, (int, np.integer)) and not isinstance(
+            obj, np.ndarray):
+        v = int(obj)
+        if 0 <= v <= 0x7f or -32 <= v < 0:
+            out.append(struct.pack(">b" if v < 0 else ">B", v))
+        elif v >= 0:
+            fmt = next((f for f, lim in ((">BB", 8), (">BH", 16),
+                                          (">BI", 32), (">BQ", 64))
+                        if v < 1 << lim))
+            out.append(struct.pack(fmt, {">BB": 0xcc, ">BH": 0xcd,
+                                         ">BI": 0xce, ">BQ": 0xcf}[fmt], v))
+        else:
+            fmt = next((f for f, lim in ((">Bb", 7), (">Bh", 15),
+                                          (">Bi", 31), (">Bq", 63))
+                        if v >= -(1 << lim)))
+            out.append(struct.pack(fmt, {">Bb": 0xd0, ">Bh": 0xd1,
+                                         ">Bi": 0xd2, ">Bq": 0xd3}[fmt], v))
+    elif isinstance(obj, (np.ndarray, torch.Tensor)):
+        arr = (obj.detach().cpu().numpy() if isinstance(obj, torch.Tensor)
+               else obj)
+        inner: list = []
+        _pack((list(arr.shape), arr.dtype.name, arr.tobytes("C")), inner)
+        data = b"".join(inner)
+        n = len(data)
+        fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+        out.append(struct.pack(">Bb", fixext[n], 1) if n in fixext else
+                   struct.pack(">BBb", 0xc7, n, 1) if n < 1 << 8 else
+                   struct.pack(">BHb", 0xc8, n, 1) if n < 1 << 16 else
+                   struct.pack(">BIb", 0xc9, n, 1))
+        out.append(data)
+    else:
+        raise TypeError(f"cannot write {type(obj).__name__} to msgpack")
+
+
+def msgpack_bytes(tree) -> bytes:
+    """A nested dict of arrays -> the bytes ``flax.serialization.to_bytes``
+    gives for it (arrays as ext type 1, keys sorted)."""
+    out: list = []
+    _pack(tree, out)
+    return b"".join(out)
+
+
+def write_msgpack(tree, path) -> None:
+    Path(path).write_bytes(msgpack_bytes(tree))
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().float().numpy()
+
+
+def _hwio(w) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(_np(w), (2, 3, 1, 0)))
+
+
+def _get_conv(sd: dict, prefix: str) -> dict:
+    p = {"kernel": _hwio(sd[f"{prefix}.weight"])}
+    if f"{prefix}.bias" in sd:
+        p["bias"] = _np(sd[f"{prefix}.bias"])
+    return p
+
+
+def _get_norm(sd: dict, prefix: str) -> dict:
+    return {"scale": _np(sd[f"{prefix}.weight"]),
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def to_flax_unet(sd: dict, n_levels: int) -> dict:
+    """``models.unet.AttentionUNet`` state -> flax params (the inverse of
+    :func:`from_flax_unet`)."""
+    p: dict = {}
+
+    def block(prefix):
+        q = {}
+        for j in range(2):
+            q[f"Conv_{j}"] = _get_conv(sd, f"{prefix}.conv{j}")
+            q[f"GroupNorm_{j}"] = _get_norm(sd, f"{prefix}.norm{j}")
+        return q
+
+    for i in range(n_levels):
+        p[f"ConvBlock_{i}"] = block(f"down.{i}")
+    p[f"ConvBlock_{n_levels}"] = block("bottleneck")
+    for j in range(n_levels):
+        k = np.transpose(_np(sd[f"up.{j}.weight"]), (2, 3, 0, 1))[::-1, ::-1]
+        p[f"ConvTranspose_{j}"] = {"kernel": np.ascontiguousarray(k),
+                                   "bias": _np(sd[f"up.{j}.bias"])}
+        p[f"AttentionGate_{j}"] = {
+            name: _get_conv(sd, f"gates.{j}.{name}")
+            for name in ("gate_proj", "skip_proj", "psi")}
+        p[f"ConvBlock_{n_levels + 1 + j}"] = block(f"up_blocks.{j}")
+    p["head"] = _get_conv(sd, "head")
+    return p
+
+
+def to_flax_encoder(sd: dict, kind: str) -> dict:
+    """``models.encoder.ResNetEncoder`` state -> flax params (the inverse of
+    :func:`from_flax_encoder`)."""
+    p = {"stem": _get_conv(sd, "stem"),
+         "GroupNorm_0": _get_norm(sd, "stem_norm")}
+    n_convs = 2 if kind == "basic" else 3
+    name = "BasicBlock" if kind == "basic" else "BottleneckBlock"
+    idx = 0
+    while f"blocks.{idx}.convs.0.weight" in sd:
+        q = {}
+        for j in range(n_convs):
+            q[f"Conv_{j}"] = _get_conv(sd, f"blocks.{idx}.convs.{j}")
+            q[f"GroupNorm_{j}"] = _get_norm(sd, f"blocks.{idx}.norms.{j}")
+        if f"blocks.{idx}.proj.weight" in sd:
+            q["proj"] = _get_conv(sd, f"blocks.{idx}.proj")
+            q[f"GroupNorm_{n_convs}"] = _get_norm(sd,
+                                                  f"blocks.{idx}.proj_norm")
+        p[f"{name}_{idx}"] = q
+        idx += 1
+    return p
+
+
+def to_flax_decoder(sd: dict) -> dict:
+    """``models.decoder.AttentiveDecoder`` state -> flax params (the inverse
+    of :func:`from_flax_decoder`: the packed LSTM gates split back)."""
+    g = {k: _np(v) for k, v in sd.items()}
+    hdim = g["wh"].shape[0]
+    dense = lambda w, b: {"kernel": w, "bias": b}
+    lstm = {}
+    for n, gate in enumerate("ifgo"):
+        cols = slice(n * hdim, (n + 1) * hdim)
+        lstm[f"i{gate}"] = {"kernel": np.ascontiguousarray(g["wx"][:, cols])}
+        lstm[f"h{gate}"] = dense(np.ascontiguousarray(g["wh"][:, cols]),
+                                 g["blstm"][cols].copy())
+    return {
+        "embedding": {"embedding": g["emb"]},
+        "enc_att": dense(g["enc_att_w"], g["enc_att_b"]),
+        "dec_att": dense(g["watt"], g["batt"]),
+        "full_att": dense(np.ascontiguousarray(g["v"][:, None]), g["bv"]),
+        "init_h": dense(g["init_h_w"], g["init_h_b"]),
+        "init_c": dense(g["init_c_w"], g["init_c_b"]),
+        "f_beta": dense(g["wf"], g["bf"]),
+        "lstm": lstm,
+        "fc": dense(g["wfc"], g["bfc"]),
+    }
+
+
+# ------------------------------------------------------------ random init
+
+def _init_tree(tree: dict, gen: torch.Generator, path: tuple = ()) -> dict:
+    """Fresh values for a flax params tree of the right shapes, leaf by leaf
+    in sorted key order, by flax's default initializer for each name:
+    ``kernel`` truncated lecun normal (fan-in = all axes but the last), the
+    LSTM's hidden kernels (``lstm/h*``) orthogonal, ``bias`` zeros,
+    ``scale`` ones, ``embedding`` normal with variance 1/D."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out[k] = _init_tree(v, gen, path + (k,))
+            continue
+        shape = tuple(np.shape(v))
+        t = torch.empty(shape)
+        if k == "kernel" and len(path) >= 2 and path[-2] == "lstm" \
+                and path[-1].startswith("h"):
+            torch.nn.init.orthogonal_(t, generator=gen)
+        elif k == "kernel":
+            # lecun_normal: variance 1/fan_in, truncated at two standard
+            # deviations and rescaled (jax.nn.initializers).
+            std = math.sqrt(1.0 / math.prod(shape[:-1])) / .87962566103423978
+            torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                        generator=gen)
+        elif k == "embedding":
+            t.normal_(0.0, math.sqrt(1.0 / shape[-1]), generator=gen)
+        elif k == "scale":
+            t.fill_(1.0)
+        elif k == "bias":
+            t.zero_()
+        else:
+            raise ValueError(f"no initializer for {'/'.join(path + (k,))}")
+        out[k] = t.numpy()
+    return out
+
+
+def init_binarizer(config, seed: int = 0):
+    """A freshly initialized ``models.unet.AttentionUNet`` (float32
+    parameters on the CPU) for ``config`` (a ``BinarizerConfig``)."""
+    from stroke_derenderer_tpu_torch.device import dtype_of
+    from stroke_derenderer_tpu_torch.models.unet import AttentionUNet
+    model = AttentionUNet(config.features, config.bottleneck, config.channels,
+                          dtype=dtype_of(config.compute_dtype))
+    n = len(config.features)
+    tree = _init_tree(to_flax_unet(model.state_dict(), n),
+                      torch.Generator().manual_seed(seed))
+    model.load_state_dict(from_flax_unet(tree, n))
+    return model
+
+
+def init_strokes(config, seed: int = 0):
+    """Freshly initialized (``ResNetEncoder``, ``AttentiveDecoder``) (float32
+    parameters on the CPU) for ``config`` (a ``StrokesConfig``); the encoder
+    draws first, then the decoder, from one generator."""
+    from stroke_derenderer_tpu_torch.device import dtype_of
+    from stroke_derenderer_tpu_torch.models.decoder import AttentiveDecoder
+    from stroke_derenderer_tpu_torch.models.encoder import (
+        ARCHS, ResNetEncoder,
+    )
+    if config.projection_dim:
+        raise NotImplementedError(
+            "projection_dim is not ported yet (ROADMAP.md)")
+    dtype = dtype_of(config.compute_dtype)
+    kind = ARCHS[config.encoder_arch][0]
+    encoder = ResNetEncoder(config.encoder_arch, dtype=dtype)
+    decoder = AttentiveDecoder(config.vocab_size, config.embed_dim,
+                               config.attention_dim, config.decoder_dim,
+                               encoder.out_features, dtype=dtype)
+    gen = torch.Generator().manual_seed(seed)
+    encoder.load_state_dict(from_flax_encoder(
+        _init_tree(to_flax_encoder(encoder.state_dict(), kind), gen), kind))
+    decoder.load_state_dict(from_flax_decoder(
+        _init_tree(to_flax_decoder(decoder.state_dict()), gen)))
+    return encoder, decoder
+
+
+def save_model_files(out_dir, bin_tree: dict | None = None, bin_config=None,
+                     encoder_tree: dict | None = None,
+                     decoder_tree: dict | None = None,
+                     strokes_config=None) -> None:
+    """Write a model directory's files from flax params trees, for
+    whichever networks are given: ``binarizer.msgpack`` +
+    ``configs_binarizer.json``, ``strokes_{encoder,decoder}.msgpack`` +
+    ``configs_strokes.json``. Each msgpack file holds ``{"params": tree}``,
+    as the JAX package's ``save_variables`` writes it."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    if bin_tree is not None:
+        write_msgpack({"params": bin_tree}, out / "binarizer.msgpack")
+        (out / "configs_binarizer.json").write_text(
+            json.dumps(bin_config.export_dict(), indent=1))
+    if encoder_tree is not None:
+        write_msgpack({"params": encoder_tree},
+                      out / "strokes_encoder.msgpack")
+        write_msgpack({"params": decoder_tree},
+                      out / "strokes_decoder.msgpack")
+        (out / "configs_strokes.json").write_text(
+            json.dumps(strokes_config.export_dict(), indent=1))
+
+
+def materialize_model_dir(model_dir, bin_config=None, strokes_config=None,
+                          seed: int = 0) -> None:
+    """Write a complete randomly initialized model directory (the default
+    configs unless given)."""
+    from stroke_derenderer_tpu_torch.config import (
+        BinarizerConfig, StrokesConfig,
+    )
+    from stroke_derenderer_tpu_torch.models.encoder import ARCHS
+    bin_config = bin_config or BinarizerConfig()
+    strokes_config = strokes_config or StrokesConfig()
+    encoder, decoder = init_strokes(strokes_config, seed)
+    save_model_files(
+        model_dir, to_flax_unet(init_binarizer(bin_config, seed).state_dict(),
+                                len(bin_config.features)), bin_config,
+        to_flax_encoder(encoder.state_dict(),
+                        ARCHS[strokes_config.encoder_arch][0]),
+        to_flax_decoder(decoder.state_dict()), strokes_config)

@@ -1,7 +1,7 @@
 """The port's CLI end to end on the CPU against the committed goldens, its
 device policy, and the import guard: the port and ``chip_smoke.py`` import
-and run with JAX, flax, PIL, msgpack, ml_dtypes and the JAX package made
-unimportable."""
+and run with JAX, flax, optax, PIL, msgpack, ml_dtypes and the JAX package
+made unimportable."""
 
 import json
 import subprocess
@@ -66,7 +66,7 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 _GUARD = r"""
 import importlib, importlib.abc, pkgutil, sys
-BLOCKED = {"jax", "jaxlib", "flax", "PIL", "msgpack", "ml_dtypes",
+BLOCKED = {"jax", "jaxlib", "flax", "optax", "PIL", "msgpack", "ml_dtypes",
            "stroke_derenderer_tpu"}
 
 class Blocker(importlib.abc.MetaPathFinder):
@@ -84,7 +84,8 @@ for name in names:
     importlib.import_module(name)
 for name in ("kernels.fused_beam", "kernels.decode_attention", "serve",
              "eval.run", "eval.metrics", "data.real", "data.synthetic",
-             "data.letters"):
+             "data.letters", "data.cache", "data.loader", "train.loop",
+             "train.steps", "train.losses", "train.checkpoint"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 import torch
@@ -102,6 +103,12 @@ assert entrypoint(["-models", models, "-input", inp, "--output", out + "_r",
 from stroke_derenderer_tpu_torch.eval.run import main as eval_main
 assert eval_main(["--models", models, "--n", "1", "--style", "letters",
                   "--redecode", "0.9", "--device", "cpu"]) == 0
+from stroke_derenderer_tpu_torch.train.loop import main as train_main
+assert train_main(["--device", "cpu", "--model", "both", "--steps", "2",
+                   "--batch", "1", "--bin-features", "8", "--encoder-arch",
+                   "tiny", "--se-dims", "16,16,16", "--seq-len", "12",
+                   "--out", out + "_t"], num_workers=1) == 0
+assert entrypoint(["--init-models", out + "_m"]) == 0
 dec = initialize_sessions(models, device="cpu")[1].decoder
 assert greedy_decode(dec, torch.zeros(2, 196, dec.enc_att_w.shape[0]), 4,
                      fused=True).shape == (2, 4)
@@ -112,9 +119,10 @@ print("GUARD OK", len(names))
 
 
 def test_import_guard(tmp_path):
-    """Every port module (the server's and the evaluator's too) and
-    chip_smoke.py import, and the CLI (greedy, --decode beam, --batch,
-    --preset real), the evaluator's main and the fused-attention greedy
+    """Every port module (the server's, the evaluator's and the trainer's
+    too) and chip_smoke.py import, and the CLI (greedy, --decode beam,
+    --batch, --preset real, --init-models), the evaluator's main, the
+    trainer's main (both models, 2 steps) and the fused-attention greedy
     entry run a tiny model on the CPU, with the JAX stack, PIL and msgpack
     unimportable."""
     from stroke_derenderer_tpu.config import BinarizerConfig, StrokesConfig
@@ -140,3 +148,7 @@ def test_import_guard(tmp_path):
     assert (tmp_path / "out_b" / "tiny_STROKES.svg").exists()
     assert (tmp_path / "out_r" / "tiny_STROKES.json").exists()
     assert '"stroke_dtw"' in proc.stdout
+    for f in ("binarizer.msgpack", "strokes_decoder.msgpack",
+              "ckpt_captioner/step_00000002/opt_state.msgpack"):
+        assert (tmp_path / "out_t" / f).exists(), f
+    assert (tmp_path / "out_m" / "strokes_encoder.msgpack").exists()

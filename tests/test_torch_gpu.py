@@ -467,3 +467,74 @@ def test_eval_runner_on_card(capsys):
     assert out["n"] == 3 and 0.0 <= out["stroke_coverage"] <= 1.0
     assert {"stroke_dtw", "stroke_dtw_ci95", "stroke_chamfer",
             "binarization_f1"} <= set(out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["binarizer", "captioner"])
+def test_train_step_on_card(model):
+    """One float32 update step of a shipped model on the card against the
+    same step on the CPU, on the same batch: the loss within 1e-5
+    (relative), every parameter's gradient within 1e-3 of its largest
+    value (cuDNN's and the CPU's float32 reductions take other orders: the
+    worst leaf measured on an H100 was 3.3e-4, a GroupNorm bias), and the
+    parameters after the update within AdamW's bound for one step (2 * lr:
+    a gradient near zero may round to the other sign)."""
+    import dataclasses
+    dev = _card()
+    from stroke_derenderer_tpu_torch.config import (
+        BinarizerConfig, StrokesConfig,
+    )
+    from stroke_derenderer_tpu_torch.data.synthetic import (
+        partitioned_glyph_batches, tile_batches,
+    )
+    from stroke_derenderer_tpu_torch.train import loop, steps
+    models = REPO / "models_demo"
+    lr = 1e-4
+    if model == "binarizer":
+        batch = next(tile_batches(np.random.default_rng(1), 2,
+                                  style="letters"))
+    else:
+        batch = next(partitioned_glyph_batches(np.random.default_rng(1), 2,
+                                               48, style="hand"))
+
+    def run(device):
+        up = lambda a: torch.from_numpy(a).to(device)
+        if model == "binarizer":
+            cfg = dataclasses.replace(BinarizerConfig.from_json(
+                models / "configs_binarizer.json"), compute_dtype="float32")
+            module = tw.init_binarizer(cfg)
+            layout = loop._unet_layout(cfg)
+            module.load_state_dict(layout.from_tree(tw.read_msgpack(
+                models / "binarizer.msgpack")["params"]))
+            module.to(device)
+            update = steps.make_binarizer_train_step(
+                module, steps.make_optimizer(module), lambda c: lr)
+            loss = float(update(*(up(a) for a in batch)))
+        else:
+            cfg = dataclasses.replace(StrokesConfig.from_json(
+                models / "configs_strokes.json"), compute_dtype="float32")
+            module = steps.Captioner(*tw.init_strokes(cfg))
+            layout = loop._captioner_layout(cfg)
+            module.load_state_dict(layout.from_tree({
+                k: tw.read_msgpack(models / f"strokes_{k}.msgpack")["params"]
+                for k in ("encoder", "decoder")}))
+            module.decoder.requires_grad_(True)
+            module.to(device)
+            update = steps.make_captioner_train_step(
+                module, steps.make_optimizer(module), lambda c: lr,
+                coord_sigma=1.0)
+            crops, tin, tout = batch
+            loss = float(update(up(crops), up(tin).long(), up(tout).long()))
+        return loss, {k: (p.grad.cpu(), p.detach().cpu())
+                      for k, p in module.named_parameters()}
+
+    (card_loss, card), (cpu_loss, cpu) = run(dev), run("cpu")
+    assert abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    for k, (g, p) in cpu.items():
+        gc, pc = card[k]
+        # The softmax over positions ignores a shift of the scores, so the
+        # gradient of decoder.bv is zero up to rounding on both sides.
+        if k != "decoder.bv":
+            assert float((gc - g).abs().max()) <= 1e-3 * float(
+                g.abs().max()), k
+        assert float((pc - p).abs().max()) <= 2 * lr + 1e-6, k

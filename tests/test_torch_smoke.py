@@ -1,4 +1,4 @@
-"""``chip_smoke.py`` rehearsed on the CPU, all thirteen phases: the card is
+"""``chip_smoke.py`` rehearsed on the CPU, all fourteen phases: the card is
 faked (availability, name, events, ``nvidia-smi``), the device is the CPU,
 the server listens on 127.0.0.1, and the wrappers of
 K1, K2 and K3 run their plain versions (K3's with bfloat16 streams, as on
@@ -6,7 +6,10 @@ the card) and count a launch; K3's bare launch runs the split-position
 emulation. This checks the script's phases and its
 output contract, not the kernels. The eval phase scores two real pairs
 and two synthetic samples, with its bars against the JAX reference opened
-(the decode is cut to a few steps here)."""
+(the decode is cut to a few steps here). The train phase holds the shipped
+models' steps to the JAX reference with the card's bars, and runs its
+recipe, resume, cache and from-scratch runs on a tiny model dir for a few
+steps at batch 2, with one loader worker."""
 
 import json
 import sys
@@ -133,6 +136,24 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(chip_smoke, "JAX_EVAL", tmp_path / "jax.json")
     monkeypatch.setattr(chip_smoke, "EVAL_F1_TOL", float("inf"))
     monkeypatch.setattr(chip_smoke, "EVAL_COVERAGE_TOL", float("inf"))
+    from stroke_derenderer_tpu_torch import weights as tw
+    from stroke_derenderer_tpu_torch.config import (
+        BinarizerConfig, StrokesConfig,
+    )
+    tiny = tmp_path / "tiny_models"
+    tw.materialize_model_dir(
+        tiny, BinarizerConfig(features=(8,), bottleneck=16),
+        StrokesConfig(encoder_arch="tiny", embed_dim=16, attention_dim=16,
+                      decoder_dim=16, max_length=12))
+    for name, value in (("TRAIN_MODELS", tiny), ("TRAIN_STEPS", 8),
+                        ("TRAIN_RESUME_STEPS", 10), ("TRAIN_BATCH", 2),
+                        ("TRAIN_SEQ_LEN", 16), ("TRAIN_CACHE_N", 6),
+                        ("TRAIN_WINDOW", 3), ("TRAIN_WORKERS", 1),
+                        ("TRAIN_SCRATCH", ("--bin-features", "8",
+                                           "--encoder-arch", "tiny",
+                                           "--se-dims", "16,16,16",
+                                           "--lr", "1e-2"))):
+        monkeypatch.setattr(chip_smoke, name, value)
 
     assert chip_smoke.main(["--out", str(tmp_path / "smoke.json")]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
@@ -159,6 +180,7 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
     assert 45 + 1 <= by_path["K1"].pop("real") <= 45 * (1 + passes)
     assert 2 <= by_path["K1"].pop("batch-real") <= 1 + passes
     assert 0 < by_path["K1"].pop("eval")
+    assert by_path["K1"].pop("train") == 1
     assert by_path["K1"] == {"main": 45, "batch": 1, "serve": served,
                              "refine": 45}
     assert by_path["K2"].pop("real-beam") >= 2
@@ -190,6 +212,21 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
     assert record["eval"]["mixed_greedy"]["result"]["n"] == 2
     assert all(not record["eval"][k]["misses"] for k in reference["runs"])
     assert 0 < kernels[2]["launches"] <= chip_smoke.MAX_LENGTH
+    # train: the reference steps within the bars, the resume, every run's
+    # rates, the from-scratch losses falling, the export served.
+    train = record["train"]
+    assert not train["golden"]["misses"]
+    assert set(train["golden"]["port"]) == {"float32", "bfloat16"}
+    assert train["resume_start_steps"] == {"binarizer": 8, "captioner": 8}
+    assert set(train["rates"]) == {
+        "binarizer", "captioner", "captioner-cache", "binarizer-resumed",
+        "captioner-resumed", "binarizer-scratch", "captioner-scratch"}
+    assert train["rates"]["captioner-resumed"]["steps"] == 2
+    assert all(r["steps_per_s"] > 0 and 0 <= r["wait_share"] <= 1
+               for r in train["rates"].values())
+    assert all(b < a for a, b in train["scratch_means"].values())
+    assert set(train["step_alone_ms"]) == {"binarizer", "captioner"}
+    assert train["cli"]["launches"] == {"K1": 1, "K2": 0, "K3": 0}
     for k in kernels:
         assert (REPO / k["source"]).exists()
         path, line = k["replaces"].split(":")
