@@ -56,7 +56,29 @@ non-zero and prints no result:
    launched once per image that has glyphs (K1 not at all). The golden
    beam strokes' chamfer distance to ``tests/golden/expected_STROKES.json``
    is recorded, not held to a bound.
-8. batch: ``cli.run_batched`` (``--batch``) on the same images, greedy: K1
+8. onnx: the upstream project's ONNX model directory. (a) ``--export-onnx``
+   of ``models_demo`` (its seconds and bytes); the port's
+   ``import_reference_models`` of it must give ``models_demo``'s trees leaf
+   for leaf, bit for bit; ``cli.run`` with ``-models`` on that directory on
+   the 45 inputs of phase 4: one result per input, every output file, the
+   golden mask, the masks as phase 4's on at least ``BATCH_MASK_AGREE`` of
+   the pixels, the golden strokes within ``STROKES_CHAMFER_PX``, K1 once per
+   image that has glyphs (the images whose strokes files are phase 4's are
+   counted); ``--decode beam --beam-size 5`` on the golden input: K2 once,
+   K1 not at all. (b) A random model of the shape upstream ships
+   (``ONNX_VARIANT_BIN``, ``ONNX_VARIANT_SE``: a batch-norm attention-UNet
+   at the JAX default widths, a batch-norm ResNet-50 and a 2048 -> 512
+   projection head, the rest at ``models_demo``'s widths; running
+   statistics drawn from ``ONNX_SEED`` with means off 0 and variances in
+   [0.5, 2]), exported by the port and imported back leaf for leaf;
+   ``binarize_image`` of the golden input in float32 on the card against
+   the CPU (``MASK_AGREE``); ``process_image`` of the golden expected mask
+   (K1 once); K1 against its plain version on this model's projected
+   (E = 512) and unprojected (E = 2048, read by a random decoder of that
+   width) sequences of synthetic glyphs at B = ``ONNX_K1_BATCHES``, phase
+   3's bars, and K2 at K = ``BEAM`` on the projected sequence at B =
+   ``ONNX_K2_BATCH``, phase 5's bars; each with its ms, grid and bound.
+9. batch: ``cli.run_batched`` (``--batch``) on the same images, greedy: K1
    launches once (and K2, K3 not at all) for all their glyphs, the golden
    mask as in phase 4, the golden strokes within ``STROKES_CHAMFER_PX``
    (chamfer) of ``tests/golden/expected_STROKES.json``, the masks as phase
@@ -66,22 +88,22 @@ non-zero and prints no result:
    row, phase 3's bars), its phase clock, and the same rows as one K1
    launch per image, back to back. The amortized s/image print beside
    phase 4's.
-9. batch-beam: as phase 8 with ``--decode beam --beam-size 5``: K2 launches
+10. batch-beam: as phase 9 with ``--decode beam --beam-size 5``: K2 launches
    once (K1 not at all); K2 at the batched shape against its plain version
    (phase 5's bars; the plain version, which steps every beam in Python,
    timed once), its phase clock, and one K2 launch per image.
-10. fused-binarize: ``binarize_images`` with ``fused=True`` (every width
+11. fused-binarize: ``binarize_images`` with ``fused=True`` (every width
    group through the device cut, stitch and bit-pack program) against the
    default mode and against phase 4's masks, each on at least
    ``BATCH_MASK_AGREE`` of the pixels; both timed.
-11. serve: the HTTP server in this process on 127.0.0.1: /healthz,
+12. serve: the HTTP server in this process on 127.0.0.1: /healthz,
    ``SERVE_CONCURRENT`` concurrent /derender requests (the golden input
    among them), /binarize, /derender?svg=1, a body that is not a PNG (400)
    and an unknown path (404). Every reply has its expected status, some
    batch holds more than one request, K1 launches fewer times than there
    were /derender requests, the golden strokes are within
    ``STROKES_CHAMFER_PX``; the stage latencies of /metrics are printed.
-12. real: ``--preset real`` (residual re-decode at coverage 0.9, up to
+13. real: ``--preset real`` (residual re-decode at coverage 0.9, up to
    ``redecode_passes`` passes). ``cli.run`` on the 45 images: K1 launches
    between one per image with glyphs plus one and one per image and pass;
    ``cli.run_batched``: one K1 launch per pass (2 to 1 + passes); ``--decode
@@ -93,7 +115,7 @@ non-zero and prints no result:
    (phase 3's bars). Prints ms/image per run, the host seconds spent in
    ``residual_ink``, ``merge_stroke_fragments`` and ``refine_strokes``
    (wrapped here, not in the package) and one ``--refine 3`` run's time.
-13. train: the trainer (``train/``) on the card. First, 3 update steps of
+14. train: the trainer (``train/``) on the card. First, 3 update steps of
    each model from ``models_demo`` on the batches of
    ``tests/golden/jax_train_steps.json`` (made again here from the port's
    generators and held to the file's batch sums), in float32 and bfloat16,
@@ -113,7 +135,7 @@ non-zero and prints no result:
    the ms of one step of each model alone (one fixed batch, no loader
    thread). Last, the recipe's exported dir through ``cli.run`` on the
    golden image: both files, one K1 launch.
-14. eval: the port's evaluator (``eval/run.py``) on the card in bfloat16:
+15. eval: the port's evaluator (``eval/run.py``) on the card in bfloat16:
    ``evaluate_real`` on the 44 pairs of ``examples/real_data``, greedy and
    with ``redecode_coverage`` 0.9, and ``evaluate_full(style="mixed",
    n=50, seed=0)``, greedy, each against the JAX package's CPU run in
@@ -167,15 +189,25 @@ K3_ATOL, K3_RTOL = 1e-5, 1e-4
 LIBS = ("fused_decode", "fused_beam", "decode_attention")
 STROKES_CHAMFER_PX = 6.0  # golden strokes, batched and served (as the tests)
 BATCH_MASK_AGREE = 0.9999  # batched or fused masks against per-image ones
-SERVE_CONCURRENT = 8       # concurrent /derender requests of phase 11
-SERVE_WINDOW_S = 0.1       # the server's batching window in phase 11
-REAL_DATA = ROOT / "examples" / "real_data"  # phase 14's real-ink pairs
-JAX_EVAL = GOLDEN / "jax_cpu_eval.json"      # phase 14's reference
-EVAL_MIXED_N = 50          # synthetic samples of phase 14's mixed run
-EVAL_F1_TOL = 0.002        # |F1 - JAX| allowed in phase 14
-EVAL_COVERAGE_TOL = 0.03   # |coverage - JAX| allowed in phase 14
-REFINE_PX = 3.0            # the --refine run of phase 12
-# Phase 13 (train). The golden file fixes the reference steps' batch, seq
+SERVE_CONCURRENT = 8       # concurrent /derender requests of phase 12
+SERVE_WINDOW_S = 0.1       # the server's batching window in phase 12
+REAL_DATA = ROOT / "examples" / "real_data"  # phase 15's real-ink pairs
+JAX_EVAL = GOLDEN / "jax_cpu_eval.json"      # phase 15's reference
+EVAL_MIXED_N = 50          # synthetic samples of phase 15's mixed run
+EVAL_F1_TOL = 0.002        # |F1 - JAX| allowed in phase 15
+EVAL_COVERAGE_TOL = 0.03   # |coverage - JAX| allowed in phase 15
+REFINE_PX = 3.0            # the --refine run of phase 13
+# Phase 8 (onnx): the random model of the shape the upstream project ships
+# (BinarizerConfig and StrokesConfig fields over the defaults and over
+# models_demo's strokes config), its seed, and the batches of its K1 and K2
+# comparisons.
+ONNX_VARIANT_BIN = {"norm": "batch"}  # features (32, 64, 128, 256), 512
+ONNX_VARIANT_SE = {"encoder_arch": "resnet50", "encoder_norm": "batch",
+                   "projection_dim": 512}
+ONNX_SEED = 0
+ONNX_K1_BATCHES = (4, 13)
+ONNX_K2_BATCH = 4
+# Phase 14 (train). The golden file fixes the reference steps' batch, seq
 # len, learning rate and step count; the bars are relative to its losses.
 JAX_TRAIN = GOLDEN / "jax_train_steps.json"
 TRAIN_F32_STEP1_RTOL = 1e-5   # float32, the first step's loss
@@ -744,11 +776,235 @@ def compare_fused_greedy(da, decoder, seq, dtype) -> dict:
     return rec
 
 
+def tree_mismatches(got: dict, want: dict, path: str = "") -> list[str]:
+    """The paths at which two trees of arrays differ: in keys, dtype, shape
+    or any bit."""
+    import numpy as np
+    if set(got) != set(want):
+        return [f"{path}: keys {sorted(set(got) ^ set(want))}"]
+    out = []
+    for k in sorted(want):
+        if isinstance(want[k], dict):
+            out += tree_mismatches(got[k], want[k], f"{path}/{k}")
+            continue
+        a, b = np.asarray(got[k]), np.asarray(want[k])
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(
+                a, b):
+            out.append(f"{path}/{k}")
+    return out
+
+
+def random_stats(tree: dict, rng) -> dict:
+    """``tree`` with every batch norm's running ``mean`` drawn from N(0.2,
+    0.3) and ``var`` from U(0.5, 2), so that no batch norm is the
+    identity."""
+    import numpy as np
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = random_stats(v, rng)
+        elif k == "mean":
+            out[k] = rng.normal(0.2, 0.3, v.shape).astype(np.float32)
+        elif k == "var":
+            out[k] = rng.uniform(0.5, 2.0, v.shape).astype(np.float32)
+        else:
+            out[k] = v
+    return out
+
+
+def onnx_phase(cli, read_png, load_image, imgs, main_out, counters,
+               dev) -> dict:
+    """Phase 8 (see the module docstring). Returns its record, with the
+    launches of its paths under ``launches``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from stroke_derenderer_tpu_torch import weights as tw
+    from stroke_derenderer_tpu_torch.config import (
+        BinarizerConfig, StrokesConfig,
+    )
+    from stroke_derenderer_tpu_torch.kernels import fused_beam as fb
+    from stroke_derenderer_tpu_torch.kernels import fused_decode as fd
+    from stroke_derenderer_tpu_torch.models.encoder import encode_postprocess
+    from stroke_derenderer_tpu_torch.models.layers import linear
+    from stroke_derenderer_tpu_torch.pipeline.binarize import Binarizer
+    from stroke_derenderer_tpu_torch.pipeline.strokes import StrokeEstimator
+    from stroke_derenderer_tpu_torch.weights.graph_export import (
+        export_reference_models,
+    )
+    from stroke_derenderer_tpu_torch.weights.graph_import import (
+        import_reference_models,
+    )
+    rec: dict = {}
+    names = ("binarizer", "strokes_encoder", "strokes_decoder",
+             "strokes_projection")
+
+    def same_trees(imported, model_dir: Path) -> list[str]:
+        _, bin_v, _, enc_v, dec_v, proj_v = imported
+        out = []
+        for name, got in zip(names, (bin_v, enc_v, dec_v, proj_v)):
+            f = model_dir / f"{name}.msgpack"
+            if got is None and not f.exists():
+                continue
+            if got is None or not f.exists():
+                out.append(f"{name}: only one side has it")
+            else:
+                out += [name + m for m in tree_mismatches(
+                    got, tw.read_msgpack(f))]
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) models_demo exported and run through the CLI.
+        demo = Path(tmp) / "demo_onnx"
+        t = time.monotonic()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.entrypoint(["-models", str(MODELS), "--export-onnx",
+                                 str(demo)])
+        rec["export_s"] = time.monotonic() - t
+        if rc != 0:
+            raise SystemExit(f"--export-onnx exited {rc}")
+        rec["export_bytes"] = {f.name: f.stat().st_size
+                               for f in sorted(demo.iterdir())}
+        t = time.monotonic()
+        imported = import_reference_models(demo)
+        rec["import_s"] = time.monotonic() - t
+        bad = same_trees(imported, MODELS)
+        if bad:
+            raise SystemExit(f"models_demo through ONNX and back: {bad}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            binarizer, estimator = cli.initialize_sessions(
+                demo, device=dev, se_overrides={"max_length": MAX_LENGTH})
+        run_rec, run_out = drive_cli(cli, read_png, imgs, binarizer,
+                                     estimator, counters)
+        run_rec["per_image"] = against_per_image(run_out, main_out)
+        rec["cli"] = run_rec
+        if (run_rec["launches"] != {"K1": run_rec["images_with_glyphs"],
+                                    "K2": 0, "K3": 0}
+                or run_rec["images_with_glyphs"] == 0):
+            raise SystemExit(f"onnx: launches {run_rec['launches']}; "
+                             f"{run_rec['images_with_glyphs']} images have "
+                             f"glyphs")
+        if run_rec["per_image"]["agree"] < BATCH_MASK_AGREE:
+            raise SystemExit(f"onnx: masks against phase 4's "
+                             f"{run_rec['per_image']}")
+        if run_rec["golden_strokes_chamfer_px"] > STROKES_CHAMFER_PX:
+            raise SystemExit(f"onnx: golden strokes chamfer "
+                             f"{run_rec['golden_strokes_chamfer_px']}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, beam_est = cli.initialize_sessions(
+                demo, device=dev, se_overrides={
+                    "decode": "beam", "beam_size": BEAM,
+                    "max_length": MAX_LENGTH})
+        beam_rec, _ = drive_cli(cli, read_png, imgs[:1], binarizer, beam_est,
+                                counters)
+        rec["beam"] = beam_rec
+        if beam_rec["launches"] != {"K1": 0, "K2": 1, "K3": 0}:
+            raise SystemExit(f"onnx beam: launches {beam_rec['launches']}")
+        del binarizer, estimator, beam_est
+
+        # (b) a random model of the upstream shape, at full width.
+        var, var_onnx = Path(tmp) / "variant", Path(tmp) / "variant_onnx"
+        bin_cfg = BinarizerConfig(**ONNX_VARIANT_BIN)
+        se_cfg = dataclasses.replace(
+            StrokesConfig.from_json(MODELS / "configs_strokes.json"),
+            **ONNX_VARIANT_SE)
+        t = time.monotonic()
+        tw.materialize_model_dir(var, bin_cfg, se_cfg, seed=ONNX_SEED)
+        rng = np.random.default_rng(ONNX_SEED)
+        for name in names[:2]:
+            f = var / f"{name}.msgpack"
+            tw.write_msgpack(random_stats(tw.read_msgpack(f), rng), f)
+        export_reference_models(var, var_onnx)
+        imported = import_reference_models(var_onnx)
+        rec["variant_round_trip_s"] = time.monotonic() - t
+        bad = same_trees(imported, var)
+        if bad:
+            raise SystemExit(f"the variant through ONNX and back: {bad}")
+        i_bin_cfg, bin_v, i_se_cfg, enc_v, dec_v, proj_v = imported
+        if (i_bin_cfg.export_dict() != bin_cfg.export_dict()
+                or i_se_cfg.export_dict() != se_cfg.export_dict()):
+            raise SystemExit("the variant's configs through ONNX differ")
+        img = load_image(GOLDEN / "golden_input.png")
+        f32 = dataclasses.replace(i_bin_cfg, compute_dtype="float32")
+        masks = [Binarizer(f32, device=d, variables=bin_v).binarize_image(
+            img)[:, :, 0] > 127 for d in (dev, "cpu")]
+        rec["variant_binarize"] = {
+            "card_vs_cpu_agree": float((masks[0] == masks[1]).mean()),
+            "ink_share": float(masks[0].mean())}
+        if rec["variant_binarize"]["card_vs_cpu_agree"] < MASK_AGREE:
+            raise SystemExit(f"variant binarize: {rec['variant_binarize']}")
+        estimator = StrokeEstimator(
+            dataclasses.replace(i_se_cfg, max_length=MAX_LENGTH), device=dev,
+            variables=(enc_v, dec_v, proj_v))
+        expected = read_png(GOLDEN / "expected_BINARIZED.png")[:, :, 0] > 127
+        for mod in counters.values():
+            mod.launch_count = 0
+        t = time.monotonic()
+        strokes = estimator.process_image(expected)
+        torch.cuda.synchronize()
+        rec["variant_process_image"] = {
+            "s": time.monotonic() - t, "strokes": len(strokes),
+            "launches": {n: m.launch_count for n, m in counters.items()}}
+        if rec["variant_process_image"]["launches"] != {"K1": 1, "K2": 0,
+                                                        "K3": 0}:
+            raise SystemExit(f"variant process_image: "
+                             f"{rec['variant_process_image']}")
+
+        # K1 and K2 at the variant's widths against their plain versions.
+        wide = tw.init_strokes(dataclasses.replace(i_se_cfg,
+                                                   projection_dim=0),
+                               ONNX_SEED)[1].to(dev).eval()
+        checks = []
+        with torch.inference_mode():
+            rng = np.random.default_rng(ONNX_SEED)
+            for b in ONNX_K1_BATCHES:
+                crops = torch.from_numpy(synthetic_crops(rng, b)).to(
+                    dev).float()
+                raw = encode_postprocess(
+                    estimator.encoder(estimator._normalize_raw(crops)),
+                    i_se_cfg.encode_image_size)
+                projected = linear(raw.to(estimator.compute_dtype),
+                                   estimator.projection)
+                for label, dec, seq in (
+                        (f"projected E={projected.shape[-1]} B={b}",
+                         estimator.decoder, projected),
+                        (f"unprojected E={raw.shape[-1]} B={b}", wide,
+                         raw)):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        c = compare_k1(fd, dec, seq, dtype, label)
+                        c["kernel"] = "K1"
+                        checks.append(c)
+                if b == ONNX_K2_BATCH:
+                    for dtype in (torch.float32, torch.bfloat16):
+                        c = compare_k2(fb, estimator.decoder, projected,
+                                       dtype, f"projected E="
+                                       f"{projected.shape[-1]} B={b}")
+                        c["kernel"] = "K2"
+                        checks.append(c)
+        for c in checks:
+            print(json.dumps({k: c[k] for k in (
+                "kernel", "case", "dtype", "B", "K", "agree", "ok", "ms",
+                "plain_ms", "bound_ms", "bound_by", "steps_max", "grid",
+                "step_ms", "max_gap_at_first_difference") if k in c}),
+                flush=True)
+        rec["checks"] = checks
+        bad = [c for c in checks if not c["ok"]]
+        if bad:
+            raise SystemExit(f"K1/K2 at the variant's widths disagree with "
+                             f"their plain versions: {bad}")
+    rec["launches"] = {
+        "K1": {"onnx": run_rec["launches"]["K1"], "onnx-variant": 1},
+        "K2": {"onnx-beam": beam_rec["launches"]["K2"]}}
+    return rec
+
+
 def drive_cli(cli, read_png, imgs, binarizer, estimator, counters,
               runner=None) -> tuple[dict, dict]:
     """``runner`` (``cli.run``, or ``cli.run_batched``) on the images with
     every module's ``launch_count`` in ``counters`` set to 0 just before
-    and read just after; the checks of phases 4, 7, 8 and 9. Returns the
+    and read just after; the checks of phases 4, 7, 8, 9 and 10. Returns the
     record and, per image, its mask (bool) and strokes as written."""
     import numpy as np
     import torch
@@ -986,7 +1242,7 @@ def golden_coverage(outputs: dict, img, tol: int) -> float:
 
 
 def against_jax(name: str, got: dict, ref: dict) -> list[str]:
-    """The bars of phase 14 for one run: the misses, as text."""
+    """The bars of phase 15 for one run: the misses, as text."""
     misses = []
     if abs(got["stroke_dtw"] - ref["stroke_dtw"]) > ref["stroke_dtw_ci95"]:
         misses.append(f"{name}: stroke_dtw {got['stroke_dtw']} against JAX "
@@ -1141,7 +1397,7 @@ def train_rates(res) -> dict:
 
 
 def train_phase(cli, counters: dict, dev) -> dict:
-    """Phase 13: the trainer on the card (see the module docstring)."""
+    """Phase 14: the trainer on the card (see the module docstring)."""
     import numpy as np
     import torch
 
@@ -1462,7 +1718,26 @@ def main(argv=None) -> int:
            f"launches, golden beam strokes chamfer "
            f"{beam_rec['golden_strokes_chamfer_px']:.3f} px")
 
-    # 8. cross-image batch, greedy ------------------------------------------
+    # 8. the upstream project's ONNX model directory -------------------------
+    t0 = time.monotonic()
+    onnx_rec = onnx_phase(cli, read_png, load_image, imgs, main_out,
+                          counters, dev)
+    record["onnx"] = onnx_rec
+    print(json.dumps({k: onnx_rec[k] for k in (
+        "export_s", "export_bytes", "import_s", "variant_round_trip_s",
+        "variant_binarize", "variant_process_image")}
+        | {"per_image": onnx_rec["cli"]["per_image"],
+           "golden_strokes_chamfer_px": onnx_rec["cli"][
+               "golden_strokes_chamfer_px"]}), flush=True)
+    _phase("onnx", t0, f"models_demo exported in {onnx_rec['export_s']:.2f} "
+           f"s ({sum(onnx_rec['export_bytes'].values())} bytes) and imported "
+           f"bit for bit; {onnx_rec['cli']['launches']['K1']} K1 launches "
+           f"over {len(imgs)} images, "
+           f"{onnx_rec['cli']['per_image']['strokes_identical']} strokes "
+           f"files as phase 4's; the variant round trip, binarize and "
+           f"{len(onnx_rec['checks'])} K1/K2 comparisons passed")
+
+    # 9. cross-image batch, greedy ------------------------------------------
     t0 = time.monotonic()
     batch_rec, batch_out = drive_cli(cli, read_png, imgs, binarizer,
                                      estimator, counters, cli.run_batched)
@@ -1518,7 +1793,7 @@ def main(argv=None) -> int:
            f"({batch_rec['per_image']['differing_px']} px differ), golden "
            f"strokes chamfer {batch_rec['golden_strokes_chamfer_px']:.3f} px")
 
-    # 9. cross-image batch, beam --------------------------------------------
+    # 10. cross-image batch, beam --------------------------------------------
     t0 = time.monotonic()
     bbeam_rec, bbeam_out = drive_cli(cli, read_png, imgs, binarizer,
                                      beam_estimator, counters,
@@ -1556,7 +1831,7 @@ def main(argv=None) -> int:
            f"{seqs['batched'].shape[0] * BEAM} beams, golden strokes chamfer "
            f"{bbeam_rec['golden_strokes_chamfer_px']:.3f} px")
 
-    # 10. fused binarize ------------------------------------------------------
+    # 11. fused binarize ------------------------------------------------------
     t0 = time.monotonic()
     raw = [img for img, _ in imgs]
     fused_calls = []
@@ -1595,7 +1870,7 @@ def main(argv=None) -> int:
     _phase("fused-binarize", t0, f"{len(imgs)} images through the device "
            f"cut and stitch, agreement >= {worst:.6f}")
 
-    # 11. the HTTP server ----------------------------------------------------
+    # 12. the HTTP server ----------------------------------------------------
     t0 = time.monotonic()
     serve_rec = drive_server(serve, encode_png, imgs, binarizer, estimator,
                              counters)
@@ -1615,7 +1890,7 @@ def main(argv=None) -> int:
            f"{lat['binarize']['p90']} s, strokes "
            f"{lat['strokes']['p50']}/{lat['strokes']['p90']} s")
 
-    # 12. --preset real: residual re-decode ----------------------------------
+    # 13. --preset real: residual re-decode ----------------------------------
     t0 = time.monotonic()
     from stroke_derenderer_tpu_torch.pipeline import strokes as pipe
     real_args = ["-models", str(MODELS), "--preset", "real"]
@@ -1732,7 +2007,7 @@ def main(argv=None) -> int:
            f"{cover['real-beam']:.4f}); K1 on {seqs['residual'].shape[0]} "
            f"residual rows passed")
 
-    # 13. the trainer ---------------------------------------------------------
+    # 14. the trainer ---------------------------------------------------------
     t0 = time.monotonic()
     train_rec = train_phase(cli, counters, dev)
     k1_train = train_rec["cli"]["launches"]["K1"]
@@ -1744,7 +2019,7 @@ def main(argv=None) -> int:
            f"dir served with {k1_train} K1 launch")
     record["train"] = train_rec
 
-    # 14. the evaluator against the JAX package's CPU run ---------------------
+    # 15. the evaluator against the JAX package's CPU run ---------------------
     t0 = time.monotonic()
     from stroke_derenderer_tpu_torch.eval import run as eval_run
     reference = json.loads(JAX_EVAL.read_text())["runs"]
@@ -1788,10 +2063,11 @@ def main(argv=None) -> int:
         "K1": {"main": launches, "batch": batch_rec["launches"]["K1"],
                "serve": k1_served, "real": k1_real, "batch-real": k1_breal,
                "refine": real_rec["refine"]["launches"]["K1"],
-               "train": k1_train, "eval": eval_launches["K1"]},
+               "train": k1_train, "eval": eval_launches["K1"]}
+        | onnx_rec["launches"]["K1"],
         "K2": {"main-beam": beam_launches,
                "batch-beam": bbeam_rec["launches"]["K2"],
-               "real-beam": k2_rbeam},
+               "real-beam": k2_rbeam} | onnx_rec["launches"]["K2"],
         "K3": {"greedy_decode(fused=True)": None}}
 
     # kernel table and result ---------------------------------------------
@@ -1834,12 +2110,14 @@ def main(argv=None) -> int:
             sum(launches_by_path["K1"].values()),
             pick(checks, "golden", "bfloat16"),
             max(1.0 - c["agree"] for c in checks + batch_k1
+                + [c for c in onnx_rec["checks"] if c["kernel"] == "K1"]
                 if c["dtype"] == "float32")),
         row("K2 fused beam decode", "fused_beam.cu",
             "stroke_derenderer_tpu/kernels/fused_beam.py:218",
             sum(launches_by_path["K2"].values()),
             pick(k2_checks, "golden", "bfloat16"),
             max(1.0 - c["agree"] for c in k2_checks + batch_k2
+                + [c for c in onnx_rec["checks"] if c["kernel"] == "K2"]
                 if c.get("dtype") == "float32")),
         row("K3 fused attention + gate", "decode_attention.cu",
             "stroke_derenderer_tpu/kernels/decode_attention.py:109",

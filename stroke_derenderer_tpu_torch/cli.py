@@ -6,6 +6,7 @@
         [--no-strokes] [--svg] [--preset reference|real] [--redecode C] \
         [--redecode-passes K] [--refine PX] [--host-partition]
     python -m stroke_derenderer_tpu_torch.cli --init-models DIR
+    python -m stroke_derenderer_tpu_torch.cli -models DIR --export-onnx OUT
 
 For every PNG in the input folder: binarize, save ``<name>_BINARIZED.png``,
 estimate strokes, save ``<name>_STROKES.json`` rescaled to the input's
@@ -20,8 +21,13 @@ re-decode at coverage 0.9), ``--redecode``, ``--redecode-passes`` and
 over the preset. ``--host-partition`` builds the glyph crops on the host
 instead of the device (the same crops). ``--init-models DIR`` writes a
 randomly initialized model dir; weights missing from ``-models`` are drawn
-at random with a warning. Runs on the card unless ``--device cpu`` is
-given.
+at random with a warning. ``-models`` may also be the upstream project's
+own ONNX model directory (``binarizer.onnx``, ``encoder.onnx``, the decoder
+graphs, ``projection.onnx`` where there is one, and the two config JSONs):
+it is imported on the fly (``weights.graph_import``). ``--export-onnx
+OUT`` writes a native ``-models`` directory in that layout
+(``weights.graph_export``) and exits. Runs on the card unless ``--device
+cpu`` is given.
 """
 
 from __future__ import annotations
@@ -102,6 +108,14 @@ def parse_args(argv=None):
     parser.add_argument("--init-models", default=None, metavar="DIR",
                         help="Write a randomly initialized model dir and "
                              "exit.")
+    parser.add_argument("--export-onnx", default=None, metavar="DIR",
+                        help="Write -models (a native msgpack model dir) "
+                             "into DIR as the upstream project's ONNX "
+                             "model directory and exit.")
+    parser.add_argument("--device-partition", action="store_true",
+                        help="Build the glyph crops on the device (the "
+                             "default; accepted as the JAX CLI accepts "
+                             "it).")
     parser.add_argument("--host-partition", action="store_true",
                         help="Build the glyph crops on the host "
                              "(pipeline.strokes.compute_partitions) and "
@@ -114,20 +128,26 @@ def initialize_sessions(folderpath, device=None,
                         fused: bool = False,
                         bin_overrides: dict | None = None):
     """Both pipelines from a model directory: the flax msgpack weights
-    ``binarizer``, ``strokes_encoder`` and ``strokes_decoder``, and the
-    config JSONs, whose entries override the defaults. ``se_overrides``
-    and ``bin_overrides`` are ``StrokesConfig`` and ``BinarizerConfig``
-    fields that win over the config JSON (``--decode``, ``--beam-size``,
+    ``binarizer``, ``strokes_encoder``, ``strokes_decoder`` and, where the
+    config has a projection head, ``strokes_projection``, and the config
+    JSONs, whose entries override the defaults. ``se_overrides`` and
+    ``bin_overrides`` are ``StrokesConfig`` and ``BinarizerConfig`` fields
+    that win over the config JSON (``--decode``, ``--beam-size``,
     ``--preset``, ``--redecode``, ``--redecode-passes``, ``--refine``);
     ``fused`` is the binarizer's mode (``--fused``). Weight files missing
     from the folder (or no folder at all) fall back to random weights with
-    a warning, as in the JAX CLI."""
+    a warning, as in the JAX CLI. A folder that holds ``binarizer.onnx``
+    and no ``binarizer.msgpack`` is the upstream project's ONNX model
+    directory, imported on the fly (``weights.graph_import``)."""
     folder = Path(folderpath) if folderpath else None
 
     def _opt(name):
         p = folder / name if folder else None
         return p if (p and p.exists()) else None
 
+    if _opt("binarizer.onnx") and not _opt("binarizer.msgpack"):
+        return _sessions_from_onnx(folder, device, se_overrides, fused,
+                                   bin_overrides)
     bin_cfg = BinarizerConfig.from_json(_opt("configs_binarizer.json"))
     if bin_overrides:
         bin_cfg = dataclasses.replace(bin_cfg, **bin_overrides)
@@ -141,12 +161,37 @@ def initialize_sessions(folderpath, device=None,
         se_cfg = dataclasses.replace(se_cfg, **se_overrides)
     enc_w, dec_w = (_opt("strokes_encoder.msgpack"),
                     _opt("strokes_decoder.msgpack"))
-    if folder and not (enc_w and dec_w):
+    paths = None
+    if enc_w and dec_w:
+        paths = {"encoder": enc_w, "decoder": dec_w}
+        proj_w = _opt("strokes_projection.msgpack")
+        if proj_w:
+            paths["projection"] = proj_w
+    elif folder:
         print(f"[warn] stroke model weights not found in {folder}; using "
               "random init")
-    estimator = StrokeEstimator(
-        se_cfg, {"encoder": enc_w, "decoder": dec_w} if enc_w and dec_w
-        else None, device=device)
+    estimator = StrokeEstimator(se_cfg, paths, device=device)
+    return binarizer, estimator
+
+
+def _sessions_from_onnx(folder: Path, device, se_overrides, fused: bool,
+                        bin_overrides):
+    """Both pipelines straight from the upstream project's ONNX model
+    directory (``weights.graph_import.import_reference_models``)."""
+    from stroke_derenderer_tpu_torch.weights.graph_import import (
+        import_reference_models,
+    )
+    print(f"[info] importing reference ONNX models from {folder}")
+    (bin_cfg, bin_vars, se_cfg, enc_vars, dec_vars,
+     proj_vars) = import_reference_models(folder)
+    if bin_overrides:
+        bin_cfg = dataclasses.replace(bin_cfg, **bin_overrides)
+    if se_overrides:
+        se_cfg = dataclasses.replace(se_cfg, **se_overrides)
+    binarizer = Binarizer(bin_cfg, device=device, fused=fused,
+                          variables=bin_vars)
+    estimator = StrokeEstimator(se_cfg, device=device,
+                                variables=(enc_vars, dec_vars, proj_vars))
     return binarizer, estimator
 
 
@@ -260,6 +305,8 @@ def strokes_overrides(args) -> dict:
         ov["redecode_passes"] = args.redecode_passes
     if args.refine is not None:
         ov["refine_snap"] = args.refine
+    if args.device_partition:
+        ov["device_partition"] = True
     if args.host_partition:
         ov["device_partition"] = False
     return ov
@@ -271,6 +318,17 @@ def entrypoint(argv=None) -> int:
         from stroke_derenderer_tpu_torch.weights import materialize_model_dir
         materialize_model_dir(args.init_models)
         print(f"initialized model dir at {args.init_models}")
+        return 0
+    if args.export_onnx:
+        if not args.models:
+            print("[error] --export-onnx requires -models <native dir>")
+            return 2
+        from stroke_derenderer_tpu_torch.weights.graph_export import (
+            export_reference_models,
+        )
+        export_reference_models(args.models, args.export_onnx)
+        print(f"exported reference-layout ONNX model dir to "
+              f"{args.export_onnx}")
         return 0
     imgs = load_images(sorted(Path(args.input).glob("*.png")))
     se_overrides = strokes_overrides(args)

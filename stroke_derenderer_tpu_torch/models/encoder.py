@@ -4,7 +4,9 @@
 The traps of the reference: convolution pads are explicit (1, 1), not
 SAME; GroupNorm has group size 8 and eps 1e-6; the stem max-pool is 3x3,
 stride 2, pad 1; the 196-position sequence of :func:`encode_postprocess`
-flattens in NHWC row-major order.
+flattens in NHWC row-major order. ``norm`` is ``"group"`` (as shipped) or
+``"batch"`` (running statistics, as an imported torch ResNet carries
+them).
 """
 
 from __future__ import annotations
@@ -13,7 +15,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from stroke_derenderer_tpu_torch.models.layers import conv, group_norm
+from stroke_derenderer_tpu_torch.models.layers import (
+    conv, make_norm, normalize,
+)
 
 # arch -> (block kind, stage sizes, stem width, channel multiplier)
 ARCHS = {
@@ -25,34 +29,40 @@ ARCHS = {
 }
 
 
-def _gn(channels: int) -> nn.GroupNorm:
-    return nn.GroupNorm(channels // 8, channels, eps=1e-6)
+def _norm(kind: str, channels: int) -> nn.Module:
+    if kind not in ("group", "batch"):
+        raise ValueError(f"encoder norm must be 'group' or 'batch', got "
+                         f"{kind!r}")
+    return make_norm(kind, channels, 8)
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, cin: int, features: int, stride: int):
+    def __init__(self, cin: int, features: int, stride: int,
+                 norm: str = "group"):
         super().__init__()
         self.stride = stride
         self.convs = nn.ModuleList([
             nn.Conv2d(cin, features, 3, stride, 1, bias=False),
             nn.Conv2d(features, features, 3, 1, 1, bias=False)])
-        self.norms = nn.ModuleList([_gn(features), _gn(features)])
+        self.norms = nn.ModuleList([_norm(norm, features),
+                                    _norm(norm, features)])
         self.proj = self.proj_norm = None
         if cin != features or stride != 1:
             self.proj = nn.Conv2d(cin, features, 1, stride, bias=False)
-            self.proj_norm = _gn(features)
+            self.proj_norm = _norm(norm, features)
 
     def forward(self, x):
-        y = F.relu(group_norm(conv(x, self.convs[0], self.stride, 1),
-                              self.norms[0]))
-        y = group_norm(conv(y, self.convs[1], 1, 1), self.norms[1])
-        res = x if self.proj is None else group_norm(
+        y = F.relu(normalize(conv(x, self.convs[0], self.stride, 1),
+                             self.norms[0]))
+        y = normalize(conv(y, self.convs[1], 1, 1), self.norms[1])
+        res = x if self.proj is None else normalize(
             conv(x, self.proj, self.stride), self.proj_norm)
         return F.relu(y + res)
 
 
 class BottleneckBlock(nn.Module):
-    def __init__(self, cin: int, features: int, stride: int):
+    def __init__(self, cin: int, features: int, stride: int,
+                 norm: str = "group"):
         super().__init__()
         self.stride = stride
         out = features * 4
@@ -60,38 +70,39 @@ class BottleneckBlock(nn.Module):
             nn.Conv2d(cin, features, 1, bias=False),
             nn.Conv2d(features, features, 3, stride, 1, bias=False),
             nn.Conv2d(features, out, 1, bias=False)])
-        self.norms = nn.ModuleList([_gn(features), _gn(features), _gn(out)])
+        self.norms = nn.ModuleList([_norm(norm, features),
+                                    _norm(norm, features), _norm(norm, out)])
         self.proj = self.proj_norm = None
         if cin != out or stride != 1:
             self.proj = nn.Conv2d(cin, out, 1, stride, bias=False)
-            self.proj_norm = _gn(out)
+            self.proj_norm = _norm(norm, out)
 
     def forward(self, x):
-        y = F.relu(group_norm(conv(x, self.convs[0]), self.norms[0]))
-        y = F.relu(group_norm(conv(y, self.convs[1], self.stride, 1),
-                              self.norms[1]))
-        y = group_norm(conv(y, self.convs[2]), self.norms[2])
-        res = x if self.proj is None else group_norm(
+        y = F.relu(normalize(conv(x, self.convs[0]), self.norms[0]))
+        y = F.relu(normalize(conv(y, self.convs[1], self.stride, 1),
+                             self.norms[1]))
+        y = normalize(conv(y, self.convs[2]), self.norms[2])
+        res = x if self.proj is None else normalize(
             conv(x, self.proj, self.stride), self.proj_norm)
         return F.relu(y + res)
 
 
 class ResNetEncoder(nn.Module):
     def __init__(self, arch: str = "resnet50",
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, norm: str = "group"):
         super().__init__()
         kind, stages, stem, mult = ARCHS[arch]
         self.dtype = dtype
         self.out_features = stem * 8 * mult
         block = BasicBlock if kind == "basic" else BottleneckBlock
         self.stem = nn.Conv2d(3, stem, 7, 2, 3, bias=False)
-        self.stem_norm = _gn(stem)
+        self.stem_norm = _norm(norm, stem)
         blocks, cin = [], stem
         for i, n_blocks in enumerate(stages):
             features = stem * 2 ** i
             for b in range(n_blocks):
                 blocks.append(block(cin, features, 2 if b == 0 and i > 0
-                                    else 1))
+                                    else 1, norm))
                 cin = features * mult
         self.blocks = nn.ModuleList(blocks)
 
@@ -99,7 +110,7 @@ class ResNetEncoder(nn.Module):
         # Contiguous NCHW, as in the UNet: GroupNorm on a channels-last
         # tensor splits its sums by the batch size on the CPU.
         x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous()
-        x = F.relu(group_norm(conv(x, self.stem, 2, 3), self.stem_norm))
+        x = F.relu(normalize(conv(x, self.stem, 2, 3), self.stem_norm))
         x = F.max_pool2d(x, 3, 2, 1)
         for block in self.blocks:
             x = block(x)

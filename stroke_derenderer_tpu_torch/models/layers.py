@@ -1,17 +1,50 @@
-"""Convolution and GroupNorm calls with flax's rounding.
+"""Convolution, Dense and normalization calls with flax's rounding.
 
 The modules keep float32 parameters and run in the dtype of their input.
-A flax ``Conv``/``ConvTranspose`` in bfloat16 rounds the product to
-bfloat16 and then adds the bias in bfloat16; ``F.conv2d`` with a bias folds
-it in before its one rounding, so the bias is added separately here. A flax
-``GroupNorm`` takes its statistics and its affine in float32 and rounds the
-result to the input's dtype.
+A flax ``Conv``/``ConvTranspose``/``Dense`` in bfloat16 rounds the product
+to bfloat16 and then adds the bias in bfloat16; ``F.conv2d`` with a bias
+folds it in before its one rounding, so the bias is added separately here.
+A flax ``GroupNorm`` takes its statistics and its affine in float32 and
+rounds the result to the input's dtype. A flax ``BatchNorm`` in inference
+mode (``use_running_average=True``) does the same with its float32 running
+statistics: ``x - mean`` promotes the input to float32, ``rsqrt(var + eps)
+* scale`` and the bias stay float32, and the result is rounded once.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm(nn.Module):
+    """The parameters of a flax ``BatchNorm`` in inference mode: ``weight``
+    and ``bias`` (flax's ``scale`` and ``bias``) and the running
+    ``running_mean`` and ``running_var`` (its ``batch_stats``). eps is
+    flax's default, 1e-5."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+
+def make_norm(kind: str, channels: int, group_size: int) -> nn.Module | None:
+    """The norm layer of a ``norm`` config value: ``"group"`` (groups of
+    ``min(group_size, channels)`` channels, eps 1e-6, flax's default),
+    ``"batch"`` or ``"none"`` (no layer)."""
+    if kind == "group":
+        return nn.GroupNorm(channels // min(group_size, channels), channels,
+                            eps=1e-6)
+    if kind == "batch":
+        return BatchNorm(channels)
+    if kind == "none":
+        return None
+    raise ValueError(f"norm must be 'group', 'batch' or 'none', got {kind!r}")
 
 
 def conv(x, layer: nn.Conv2d | nn.ConvTranspose2d, stride: int = 1,
@@ -24,6 +57,30 @@ def conv(x, layer: nn.Conv2d | nn.ConvTranspose2d, stride: int = 1,
     return y
 
 
+def linear(x, layer: nn.Linear):
+    """A flax ``Dense`` on x's last axis: the product in x's dtype, then the
+    bias added in x's dtype."""
+    y = torch.matmul(x, layer.weight.t().to(x.dtype))
+    return y + layer.bias.to(x.dtype)
+
+
 def group_norm(x, norm: nn.GroupNorm):
     return F.group_norm(x.float(), norm.num_groups, norm.weight, norm.bias,
                         norm.eps).to(x.dtype)
+
+
+def batch_norm(x, norm: BatchNorm):
+    """NCHW ``x`` through ``norm``'s running statistics, in flax's order."""
+    shape = (1, -1, 1, 1)
+    mul = torch.rsqrt(norm.running_var + norm.eps) * norm.weight
+    y = (x.float() - norm.running_mean.view(shape)) * mul.view(shape)
+    return (y + norm.bias.view(shape)).to(x.dtype)
+
+
+def normalize(x, norm: nn.Module | None):
+    """``x`` through a layer of :func:`make_norm` (None: unchanged)."""
+    if norm is None:
+        return x
+    if isinstance(norm, BatchNorm):
+        return batch_norm(x, norm)
+    return group_norm(x, norm)

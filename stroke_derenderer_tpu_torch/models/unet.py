@@ -5,7 +5,9 @@ are float32; the convolutions run in ``dtype`` (bfloat16 as shipped) and
 round where flax rounds (see :mod:`.layers`). The traps of the reference:
 GroupNorm eps is 1e-6 and its group size is ``min(16, features)``; the
 skip concat order is ``[gated, x]``; the head and its sigmoid run in
-float32.
+float32. ``norm`` is ``"group"`` (as shipped), ``"batch"`` (running
+statistics, as an imported torch attention-UNet carries them) or
+``"none"``.
 """
 
 from __future__ import annotations
@@ -16,23 +18,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from stroke_derenderer_tpu_torch.models.layers import conv, group_norm
+from stroke_derenderer_tpu_torch.models.layers import (
+    conv, make_norm, normalize,
+)
 
 
 class ConvBlock(nn.Module):
-    """Two (3x3 conv, GroupNorm, ReLU) stages."""
+    """Two (3x3 conv, norm, ReLU) stages."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, norm: str = "group"):
         super().__init__()
-        groups = features // min(16, features)
         self.conv0 = nn.Conv2d(cin, features, 3, padding=1, bias=False)
-        self.norm0 = nn.GroupNorm(groups, features, eps=1e-6)
+        self.norm0 = make_norm(norm, features, 16)
         self.conv1 = nn.Conv2d(features, features, 3, padding=1, bias=False)
-        self.norm1 = nn.GroupNorm(groups, features, eps=1e-6)
+        self.norm1 = make_norm(norm, features, 16)
 
     def forward(self, x):
-        x = F.relu(group_norm(conv(x, self.conv0, padding=1), self.norm0))
-        return F.relu(group_norm(conv(x, self.conv1, padding=1), self.norm1))
+        x = F.relu(normalize(conv(x, self.conv0, padding=1), self.norm0))
+        return F.relu(normalize(conv(x, self.conv1, padding=1), self.norm1))
 
 
 class AttentionGate(nn.Module):
@@ -54,20 +57,20 @@ class AttentionUNet(nn.Module):
 
     def __init__(self, features: Sequence[int] = (32, 64, 128, 256),
                  bottleneck: int = 512, in_channels: int = 3,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, norm: str = "group"):
         super().__init__()
         self.dtype = dtype
         features = tuple(features)
         chans = (in_channels,) + features
-        self.down = nn.ModuleList(ConvBlock(chans[i], f)
+        self.down = nn.ModuleList(ConvBlock(chans[i], f, norm)
                                   for i, f in enumerate(features))
-        self.bottleneck = ConvBlock(features[-1], bottleneck)
+        self.bottleneck = ConvBlock(features[-1], bottleneck, norm)
         ups, gates, blocks = [], [], []
         cin = bottleneck
         for f in reversed(features):
             ups.append(nn.ConvTranspose2d(cin, f, 2, stride=2))
             gates.append(AttentionGate(f, f, max(f // 2, 4)))
-            blocks.append(ConvBlock(2 * f, f))
+            blocks.append(ConvBlock(2 * f, f, norm))
             cin = f
         self.up = nn.ModuleList(ups)
         self.gates = nn.ModuleList(gates)

@@ -62,25 +62,30 @@ def _prep_line(image: np.ndarray, cfg: BinarizerConfig,
 
 
 class Binarizer:
-    def __init__(self, config: BinarizerConfig, weights_path, device=None,
-                 fused: bool = False):
-        """``weights_path``: the UNet's flax msgpack file, or None for
-        random weights (``weights.init_binarizer``, seed 0).
-        ``fused``: cut and stitch on the device (one program per tile
-        plan), and every width group of ``binarize_images`` through the
-        batched fused program."""
+    def __init__(self, config: BinarizerConfig, weights_path=None,
+                 device=None, fused: bool = False, variables=None):
+        """``weights_path``: the UNet's flax msgpack file; ``variables``:
+        its flax variables (or params) tree given in memory instead, as an
+        ONNX import gives it; with neither, random weights
+        (``weights.init_binarizer``, seed 0). ``config.norm`` is
+        ``"group"``, ``"batch"`` or ``"none"``. ``fused``: cut and stitch on
+        the device (one program per tile plan), and every width group of
+        ``binarize_images`` through the batched fused program."""
         self.config = cfg = config
-        if cfg.norm != "group" or cfg.quant != "none":
+        if cfg.quant != "none":
             raise NotImplementedError(
-                f"norm={cfg.norm!r}, quant={cfg.quant!r}: only GroupNorm "
-                "and unquantized weights are ported (ROADMAP.md)")
+                f"quant={cfg.quant!r}: only unquantized weights are ported "
+                "(ROADMAP.md)")
         self.device = resolve_device(device)
-        if weights_path is None:
+        if variables is None and weights_path is not None:
+            variables = read_msgpack(weights_path)
+        if variables is None:
             model = init_binarizer(cfg)
         else:
             model = AttentionUNet(cfg.features, cfg.bottleneck, cfg.channels,
-                                  dtype=dtype_of(cfg.compute_dtype))
-            model.load_state_dict(from_flax_unet(read_msgpack(weights_path),
+                                  dtype=dtype_of(cfg.compute_dtype),
+                                  norm=cfg.norm)
+            model.load_state_dict(from_flax_unet(variables,
                                                  len(cfg.features)))
         self.model = model.to(self.device).eval()
         self.fused = fused

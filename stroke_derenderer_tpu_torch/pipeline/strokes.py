@@ -35,6 +35,7 @@ from stroke_derenderer_tpu_torch.models.decoder import AttentiveDecoder
 from stroke_derenderer_tpu_torch.models.encoder import (
     ARCHS, ResNetEncoder, encode_postprocess,
 )
+from stroke_derenderer_tpu_torch.models.layers import linear
 from stroke_derenderer_tpu_torch.ops import grouping
 from stroke_derenderer_tpu_torch.ops.device_partition import (
     PartitionPlan, gather_crops, gather_crops_batched, plan_partitions,
@@ -47,7 +48,8 @@ from stroke_derenderer_tpu_torch.ops.strokes import (
     sort_strokes,
 )
 from stroke_derenderer_tpu_torch.weights import (
-    from_flax_decoder, from_flax_encoder, init_strokes, read_msgpack,
+    from_flax_decoder, from_flax_encoder, from_flax_projection,
+    init_projection, init_strokes, read_msgpack,
 )
 
 
@@ -123,38 +125,57 @@ def compute_partitions(img_bin: np.ndarray, cfg: StrokesConfig) -> list[dict]:
 
 
 class StrokeEstimator:
-    def __init__(self, config: StrokesConfig, weights_paths: dict | None,
-                 device=None):
+    def __init__(self, config: StrokesConfig,
+                 weights_paths: dict | None = None, device=None,
+                 variables: tuple | None = None):
         """``weights_paths``: {"encoder": path, "decoder": path} to the
-        networks' flax msgpack files, or None for random weights
-        (``weights.init_strokes``, seed 0)."""
+        networks' flax msgpack files, and "projection" to the projection
+        head's where ``config.projection_dim`` > 0; ``variables``: the
+        (encoder, decoder, projection or None) flax trees given in memory
+        instead, as an ONNX import gives them; with neither, random weights
+        (``weights.init_strokes``, seed 0). ``config.encoder_norm`` is
+        ``"group"`` or ``"batch"``."""
         self.config = cfg = config
         if cfg.decode not in ("greedy", "beam"):
             raise ValueError(f"decode must be 'greedy' or 'beam', got "
                              f"{cfg.decode!r}")
-        unsupported = [name for name, bad in (
-            ("projection_dim", cfg.projection_dim != 0),
-            ("encoder_norm", cfg.encoder_norm != "group"),
-            ("quant", cfg.quant != "none")) if bad]
-        if unsupported:
+        if cfg.quant != "none":
             raise NotImplementedError(
-                f"not ported yet (ROADMAP.md): {unsupported}")
+                f"quant={cfg.quant!r}: only unquantized weights are ported "
+                "(ROADMAP.md)")
         self.device = resolve_device(device)
         dtype = dtype_of(cfg.compute_dtype)
-        if weights_paths is None:
+        if variables is None and weights_paths is not None:
+            if cfg.projection_dim and "projection" not in weights_paths:
+                raise ValueError(
+                    f"projection_dim={cfg.projection_dim} but no projection "
+                    "weights (strokes_projection.msgpack) were given")
+            variables = tuple(
+                read_msgpack(weights_paths[k]) if k in weights_paths
+                else None for k in ("encoder", "decoder", "projection"))
+        if variables is None:
             encoder, decoder = init_strokes(cfg)
+            projection = init_projection(cfg)
         else:
-            encoder = ResNetEncoder(cfg.encoder_arch, dtype=dtype)
+            enc_vars, dec_vars, proj_vars = variables
+            encoder = ResNetEncoder(cfg.encoder_arch, dtype=dtype,
+                                    norm=cfg.encoder_norm)
             decoder = AttentiveDecoder(
                 cfg.vocab_size, cfg.embed_dim, cfg.attention_dim,
-                cfg.decoder_dim, encoder.out_features, dtype=dtype)
+                cfg.decoder_dim, cfg.projection_dim or encoder.out_features,
+                dtype=dtype)
             encoder.load_state_dict(from_flax_encoder(
-                read_msgpack(weights_paths["encoder"]),
-                ARCHS[cfg.encoder_arch][0]))
-            decoder.load_state_dict(from_flax_decoder(
-                read_msgpack(weights_paths["decoder"])))
+                enc_vars, ARCHS[cfg.encoder_arch][0]))
+            decoder.load_state_dict(from_flax_decoder(dec_vars))
+            projection = None
+            if cfg.projection_dim:
+                projection = torch.nn.Linear(encoder.out_features,
+                                             cfg.projection_dim)
+                projection.load_state_dict(from_flax_projection(proj_vars))
         self.encoder = encoder.to(self.device).eval()
         self.decoder = decoder.to(self.device).eval()
+        self.projection = (None if projection is None
+                           else projection.to(self.device).eval())
         self.compute_dtype = dtype
         if self.device.type == "cuda":
             # Build (or load) the decode kernel now, not in the first call.
@@ -171,11 +192,13 @@ class StrokeEstimator:
     def _encode_and_decode(self, crops: torch.Tensor,
                            max_length: int | None) -> torch.Tensor:
         """(N, S, S) float32 crops in 0..255 on the device -> (N,
-        max_length) int32 tokens there: normalization, encoder, one K1
-        (greedy) or K2 (beam) call."""
+        max_length) int32 tokens there: normalization, encoder, projection
+        head (where there is one), one K1 (greedy) or K2 (beam) call."""
         cfg = self.config
         images = self._normalize_raw(crops)
         seq = encode_postprocess(self.encoder(images), cfg.encode_image_size)
+        if self.projection is not None:
+            seq = linear(seq.to(self.compute_dtype), self.projection)
         seq = seq.to(self.compute_dtype)
         max_length = max_length or cfg.max_length
         if cfg.decode == "beam":

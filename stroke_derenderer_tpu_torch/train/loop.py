@@ -294,6 +294,19 @@ def _check_single_device(mesh: int = 0, tp: int = 1,
             f"({MESH_ITEM})")
 
 
+def _check_trainable(bin_config: BinarizerConfig | None = None,
+                     se_config: StrokesConfig | None = None) -> None:
+    """Batch norms' running statistics and the projection head are not
+    trained (nor by the JAX trainer): such a model loads and runs, but a
+    training run would export it without them."""
+    if (bin_config is not None and bin_config.norm == "batch") or (
+            se_config is not None and (se_config.encoder_norm == "batch"
+                                       or se_config.projection_dim)):
+        raise NotImplementedError(
+            "training a batch-norm model or a projection head is not "
+            "supported")
+
+
 def train_binarizer(config: BinarizerConfig, steps: int, batch_size: int,
                     out_dir: str | Path, lr: float = 3e-4, seed: int = 0,
                     ckpt_every: int = 200, ckpt_keep: int = 0,
@@ -307,6 +320,7 @@ def train_binarizer(config: BinarizerConfig, steps: int, batch_size: int,
     """Train the attention-UNet on synthetic lines (or ``data_dir``'s real
     pairs) and export it into ``out_dir``."""
     _check_single_device(mesh)
+    _check_trainable(bin_config=config)
     device = resolve_device(device)
     model = init_binarizer(config, seed)
     layout = _unet_layout(config)
@@ -413,6 +427,7 @@ def train_captioner(config: StrokesConfig, steps: int, batch_size: int,
     """Train the ResNet encoder and the attentive decoder on glyph crops and
     export them into ``out_dir``."""
     _check_single_device(mesh)
+    _check_trainable(se_config=config)
     device = resolve_device(device)
     encoder, decoder = init_strokes(config, seed)
     captioner = Captioner(encoder, decoder)

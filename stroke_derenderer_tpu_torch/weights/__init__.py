@@ -15,13 +15,27 @@ the port's module, with the layout rules of the JAX package's
 ``weights/graph_export.py``: Conv HWIO -> OIHW, ConvTranspose flipped in
 space and laid out (in, out, kh, kw), and the decoder's dense kernels kept
 (in, out) with the LSTM's gates packed as ``kernels/fused_decode.py`` packs
-them (``pack_decoder_weights``). ``to_flax_*`` are their exact inverses.
+them (``pack_decoder_weights``). They take a params tree or a whole flax
+variables dict, whose ``batch_stats`` (the running ``mean`` and ``var`` of
+each ``BatchNorm``) become the norm layers' running buffers. ``to_flax_*``
+are their exact inverses for the params; ``*_variables`` give the whole
+variables dict, ``batch_stats`` included where the model has batch norms.
+The projection head (``strokes_projection.msgpack``) is a flax ``Dense``,
+an ``nn.Linear`` here.
 
-:func:`init_binarizer` and :func:`init_strokes` draw fresh parameters with
-flax's initializer families from a seeded ``torch.Generator``: truncated
-lecun-normal kernels, orthogonal LSTM hidden kernels, zero biases, unit
-GroupNorm scales and a normal(1/sqrt(D)) embedding (the numbers differ from
-the JAX package's, the distributions do not).
+:func:`init_binarizer`, :func:`init_strokes` and :func:`init_projection`
+draw fresh parameters with flax's initializer families from a seeded
+``torch.Generator``: truncated lecun-normal kernels, orthogonal LSTM hidden
+kernels, zero biases, unit norm scales, zero running means and unit running
+variances, and a normal(1/sqrt(D)) embedding (the numbers differ from the
+JAX package's, the distributions do not).
+
+The ONNX side, each a copy of the JAX package's module of the same name:
+:mod:`.importer` (the protobuf wire-format tensor parser and the torch ->
+flax layout converters), :mod:`.onnx_graph` (graph reader and writer),
+:mod:`.graph_import` (the reference's ONNX model directory -> flax-layout
+trees), :mod:`.graph_export` (a native model directory -> that layout) and
+:mod:`.onnx_run` (a torch executor of the exported graphs, for the tests).
 """
 
 from __future__ import annotations
@@ -127,6 +141,46 @@ def _params(tree: dict) -> dict:
     return tree["params"] if "params" in tree else tree
 
 
+def _merged(tree: dict) -> dict:
+    """A params tree, or a variables dict with its ``batch_stats`` merged
+    into the params: each ``BatchNorm`` node then holds ``scale``,
+    ``bias``, ``mean`` and ``var``."""
+    def merge(p: dict, s: dict) -> dict:
+        return {k: merge(v, s[k]) if isinstance(v, dict) and k in s
+                else v for k, v in p.items()} | {
+            k: v for k, v in s.items() if k not in p}
+    if "params" not in tree:
+        return tree
+    return merge(tree["params"], tree.get("batch_stats", {}))
+
+
+def flax_variables(tree: dict) -> dict:
+    """The inverse of :func:`_merged`: a merged tree -> ``{"params": ...}``,
+    with ``"batch_stats"`` (every ``mean`` and ``var`` leaf) where there
+    are any."""
+    def split(t: dict):
+        params, stats = {}, {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                params[k], s = split(v)
+                if s:
+                    stats[k] = s
+            elif k in ("mean", "var"):
+                stats[k] = v
+            else:
+                params[k] = v
+        return params, stats
+    params, stats = split(tree)
+    return {"params": params} | ({"batch_stats": stats} if stats else {})
+
+
+def _norm_name(q: dict, j: int) -> str | None:
+    """The flax name of a block's j-th norm (GroupNorm_j or BatchNorm_j),
+    None for a model without norms."""
+    return next((f"{kind}_{j}" for kind in ("GroupNorm", "BatchNorm")
+                 if f"{kind}_{j}" in q), None)
+
+
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
@@ -141,20 +195,26 @@ def _put_conv(sd: dict, prefix: str, p: dict) -> None:
         sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
-def _put_norm(sd: dict, prefix: str, p: dict) -> None:
+def _put_norm(sd: dict, prefix: str, p: dict | None) -> None:
+    if p is None:
+        return
     sd[f"{prefix}.weight"] = _t(p["scale"])
     sd[f"{prefix}.bias"] = _t(p["bias"])
+    if "mean" in p:
+        sd[f"{prefix}.running_mean"] = _t(p["mean"])
+        sd[f"{prefix}.running_var"] = _t(p["var"])
 
 
 def from_flax_unet(tree: dict, n_levels: int) -> dict:
-    """AttentionUNet flax params -> ``models.unet.AttentionUNet`` state."""
-    p = _params(tree)
+    """AttentionUNet flax params or variables ->
+    ``models.unet.AttentionUNet`` state."""
+    p = _merged(tree)
     sd: dict = {}
 
     def block(prefix, q):
         for j in range(2):
             _put_conv(sd, f"{prefix}.conv{j}", q[f"Conv_{j}"])
-            _put_norm(sd, f"{prefix}.norm{j}", q[f"GroupNorm_{j}"])
+            _put_norm(sd, f"{prefix}.norm{j}", q.get(_norm_name(q, j)))
 
     for i in range(n_levels):
         block(f"down.{i}", p[f"ConvBlock_{i}"])
@@ -172,11 +232,12 @@ def from_flax_unet(tree: dict, n_levels: int) -> dict:
 
 
 def from_flax_encoder(tree: dict, kind: str) -> dict:
-    """ResNetEncoder flax params -> ``models.encoder.ResNetEncoder`` state."""
-    p = _params(tree)
+    """ResNetEncoder flax params or variables ->
+    ``models.encoder.ResNetEncoder`` state."""
+    p = _merged(tree)
     sd: dict = {}
     _put_conv(sd, "stem", p["stem"])
-    _put_norm(sd, "stem_norm", p["GroupNorm_0"])
+    _put_norm(sd, "stem_norm", p[_norm_name(p, 0)])
     n_convs = 2 if kind == "basic" else 3
     name = "BasicBlock" if kind == "basic" else "BottleneckBlock"
     idx = 0
@@ -184,12 +245,19 @@ def from_flax_encoder(tree: dict, kind: str) -> dict:
         q = p[f"{name}_{idx}"]
         for j in range(n_convs):
             _put_conv(sd, f"blocks.{idx}.convs.{j}", q[f"Conv_{j}"])
-            _put_norm(sd, f"blocks.{idx}.norms.{j}", q[f"GroupNorm_{j}"])
+            _put_norm(sd, f"blocks.{idx}.norms.{j}", q[_norm_name(q, j)])
         if "proj" in q:
             _put_conv(sd, f"blocks.{idx}.proj", q["proj"])
-            _put_norm(sd, f"blocks.{idx}.proj_norm", q[f"GroupNorm_{n_convs}"])
+            _put_norm(sd, f"blocks.{idx}.proj_norm",
+                      q[_norm_name(q, n_convs)])
         idx += 1
     return sd
+
+
+def from_flax_projection(tree: dict) -> dict:
+    """The projection head's flax Dense params -> ``nn.Linear`` state."""
+    p = _params(tree)
+    return {"weight": _t(np.asarray(p["kernel"]).T), "bias": _t(p["bias"])}
 
 
 def from_flax_decoder(tree: dict) -> dict:
@@ -315,21 +383,29 @@ def _get_conv(sd: dict, prefix: str) -> dict:
     return p
 
 
-def _get_norm(sd: dict, prefix: str) -> dict:
-    return {"scale": _np(sd[f"{prefix}.weight"]),
-            "bias": _np(sd[f"{prefix}.bias"])}
+def _get_norm(sd: dict, prefix: str, q: dict, j: int) -> None:
+    """Put the norm layer at ``prefix`` (if any) into ``q`` under its flax
+    name, its running statistics beside its scale and bias."""
+    if f"{prefix}.weight" not in sd:
+        return
+    p = {"scale": _np(sd[f"{prefix}.weight"]),
+         "bias": _np(sd[f"{prefix}.bias"])}
+    if f"{prefix}.running_mean" in sd:
+        p |= {"mean": _np(sd[f"{prefix}.running_mean"]),
+              "var": _np(sd[f"{prefix}.running_var"])}
+    q[f"{'BatchNorm' if 'mean' in p else 'GroupNorm'}_{j}"] = p
 
 
-def to_flax_unet(sd: dict, n_levels: int) -> dict:
-    """``models.unet.AttentionUNet`` state -> flax params (the inverse of
-    :func:`from_flax_unet`)."""
+def unet_variables(sd: dict, n_levels: int) -> dict:
+    """``models.unet.AttentionUNet`` state -> flax variables (params, and
+    batch_stats for batch norms); the inverse of :func:`from_flax_unet`."""
     p: dict = {}
 
     def block(prefix):
         q = {}
         for j in range(2):
             q[f"Conv_{j}"] = _get_conv(sd, f"{prefix}.conv{j}")
-            q[f"GroupNorm_{j}"] = _get_norm(sd, f"{prefix}.norm{j}")
+            _get_norm(sd, f"{prefix}.norm{j}", q, j)
         return q
 
     for i in range(n_levels):
@@ -344,14 +420,21 @@ def to_flax_unet(sd: dict, n_levels: int) -> dict:
             for name in ("gate_proj", "skip_proj", "psi")}
         p[f"ConvBlock_{n_levels + 1 + j}"] = block(f"up_blocks.{j}")
     p["head"] = _get_conv(sd, "head")
-    return p
+    return flax_variables(p)
 
 
-def to_flax_encoder(sd: dict, kind: str) -> dict:
-    """``models.encoder.ResNetEncoder`` state -> flax params (the inverse of
-    :func:`from_flax_encoder`)."""
-    p = {"stem": _get_conv(sd, "stem"),
-         "GroupNorm_0": _get_norm(sd, "stem_norm")}
+def to_flax_unet(sd: dict, n_levels: int) -> dict:
+    """``models.unet.AttentionUNet`` state -> flax params (the inverse of
+    :func:`from_flax_unet`)."""
+    return unet_variables(sd, n_levels)["params"]
+
+
+def encoder_variables(sd: dict, kind: str) -> dict:
+    """``models.encoder.ResNetEncoder`` state -> flax variables (params,
+    and batch_stats for batch norms); the inverse of
+    :func:`from_flax_encoder`."""
+    p = {"stem": _get_conv(sd, "stem")}
+    _get_norm(sd, "stem_norm", p, 0)
     n_convs = 2 if kind == "basic" else 3
     name = "BasicBlock" if kind == "basic" else "BottleneckBlock"
     idx = 0
@@ -359,14 +442,25 @@ def to_flax_encoder(sd: dict, kind: str) -> dict:
         q = {}
         for j in range(n_convs):
             q[f"Conv_{j}"] = _get_conv(sd, f"blocks.{idx}.convs.{j}")
-            q[f"GroupNorm_{j}"] = _get_norm(sd, f"blocks.{idx}.norms.{j}")
+            _get_norm(sd, f"blocks.{idx}.norms.{j}", q, j)
         if f"blocks.{idx}.proj.weight" in sd:
             q["proj"] = _get_conv(sd, f"blocks.{idx}.proj")
-            q[f"GroupNorm_{n_convs}"] = _get_norm(sd,
-                                                  f"blocks.{idx}.proj_norm")
+            _get_norm(sd, f"blocks.{idx}.proj_norm", q, n_convs)
         p[f"{name}_{idx}"] = q
         idx += 1
-    return p
+    return flax_variables(p)
+
+
+def to_flax_encoder(sd: dict, kind: str) -> dict:
+    """``models.encoder.ResNetEncoder`` state -> flax params (the inverse of
+    :func:`from_flax_encoder`)."""
+    return encoder_variables(sd, kind)["params"]
+
+
+def to_flax_projection(sd: dict) -> dict:
+    """``nn.Linear`` state -> the projection head's flax Dense params."""
+    return {"kernel": np.ascontiguousarray(_np(sd["weight"]).T),
+            "bias": _np(sd["bias"])}
 
 
 def to_flax_decoder(sd: dict) -> dict:
@@ -400,8 +494,9 @@ def _init_tree(tree: dict, gen: torch.Generator, path: tuple = ()) -> dict:
     """Fresh values for a flax params tree of the right shapes, leaf by leaf
     in sorted key order, by flax's default initializer for each name:
     ``kernel`` truncated lecun normal (fan-in = all axes but the last), the
-    LSTM's hidden kernels (``lstm/h*``) orthogonal, ``bias`` zeros,
-    ``scale`` ones, ``embedding`` normal with variance 1/D."""
+    LSTM's hidden kernels (``lstm/h*``) orthogonal, ``bias`` and the
+    running ``mean`` zeros, ``scale`` and the running ``var`` ones,
+    ``embedding`` normal with variance 1/D."""
     out = {}
     for k in sorted(tree):
         v = tree[k]
@@ -421,9 +516,9 @@ def _init_tree(tree: dict, gen: torch.Generator, path: tuple = ()) -> dict:
                                         generator=gen)
         elif k == "embedding":
             t.normal_(0.0, math.sqrt(1.0 / shape[-1]), generator=gen)
-        elif k == "scale":
+        elif k in ("scale", "var"):
             t.fill_(1.0)
-        elif k == "bias":
+        elif k in ("bias", "mean"):
             t.zero_()
         else:
             raise ValueError(f"no initializer for {'/'.join(path + (k,))}")
@@ -437,9 +532,10 @@ def init_binarizer(config, seed: int = 0):
     from stroke_derenderer_tpu_torch.device import dtype_of
     from stroke_derenderer_tpu_torch.models.unet import AttentionUNet
     model = AttentionUNet(config.features, config.bottleneck, config.channels,
-                          dtype=dtype_of(config.compute_dtype))
+                          dtype=dtype_of(config.compute_dtype),
+                          norm=config.norm)
     n = len(config.features)
-    tree = _init_tree(to_flax_unet(model.state_dict(), n),
+    tree = _init_tree(_merged(unet_variables(model.state_dict(), n)),
                       torch.Generator().manual_seed(seed))
     model.load_state_dict(from_flax_unet(tree, n))
     return model
@@ -448,49 +544,76 @@ def init_binarizer(config, seed: int = 0):
 def init_strokes(config, seed: int = 0):
     """Freshly initialized (``ResNetEncoder``, ``AttentiveDecoder``) (float32
     parameters on the CPU) for ``config`` (a ``StrokesConfig``); the encoder
-    draws first, then the decoder, from one generator."""
+    draws first, then the decoder, from one generator. The decoder reads
+    ``projection_dim`` features where there is a projection head
+    (:func:`init_projection`)."""
     from stroke_derenderer_tpu_torch.device import dtype_of
     from stroke_derenderer_tpu_torch.models.decoder import AttentiveDecoder
     from stroke_derenderer_tpu_torch.models.encoder import (
         ARCHS, ResNetEncoder,
     )
-    if config.projection_dim:
-        raise NotImplementedError(
-            "projection_dim is not ported yet (ROADMAP.md)")
     dtype = dtype_of(config.compute_dtype)
     kind = ARCHS[config.encoder_arch][0]
-    encoder = ResNetEncoder(config.encoder_arch, dtype=dtype)
+    encoder = ResNetEncoder(config.encoder_arch, dtype=dtype,
+                            norm=config.encoder_norm)
     decoder = AttentiveDecoder(config.vocab_size, config.embed_dim,
                                config.attention_dim, config.decoder_dim,
-                               encoder.out_features, dtype=dtype)
+                               config.projection_dim or encoder.out_features,
+                               dtype=dtype)
     gen = torch.Generator().manual_seed(seed)
-    encoder.load_state_dict(from_flax_encoder(
-        _init_tree(to_flax_encoder(encoder.state_dict(), kind), gen), kind))
+    encoder.load_state_dict(from_flax_encoder(_init_tree(_merged(
+        encoder_variables(encoder.state_dict(), kind)), gen), kind))
     decoder.load_state_dict(from_flax_decoder(
         _init_tree(to_flax_decoder(decoder.state_dict()), gen)))
     return encoder, decoder
 
 
+def init_projection(config, seed: int = 0):
+    """A freshly initialized projection head (``nn.Linear`` from the
+    encoder's features to ``projection_dim``) for ``config``, from a
+    generator of its own (seeded ``seed + 1``); None without a projection."""
+    from stroke_derenderer_tpu_torch.models.encoder import ARCHS
+    if not config.projection_dim:
+        return None
+    _, _, stem, mult = ARCHS[config.encoder_arch]
+    proj = torch.nn.Linear(stem * 8 * mult, config.projection_dim)
+    proj.load_state_dict(from_flax_projection(_init_tree(
+        to_flax_projection(proj.state_dict()),
+        torch.Generator().manual_seed(seed + 1))))
+    return proj
+
+
+def _variables(tree: dict) -> dict:
+    """A params tree or a variables dict -> a variables dict."""
+    return tree if "params" in tree else {"params": tree}
+
+
 def save_model_files(out_dir, bin_tree: dict | None = None, bin_config=None,
                      encoder_tree: dict | None = None,
                      decoder_tree: dict | None = None,
-                     strokes_config=None) -> None:
-    """Write a model directory's files from flax params trees, for
-    whichever networks are given: ``binarizer.msgpack`` +
-    ``configs_binarizer.json``, ``strokes_{encoder,decoder}.msgpack`` +
-    ``configs_strokes.json``. Each msgpack file holds ``{"params": tree}``,
-    as the JAX package's ``save_variables`` writes it."""
+                     strokes_config=None,
+                     projection_tree: dict | None = None) -> None:
+    """Write a model directory's files from flax params trees or variables
+    dicts, for whichever networks are given: ``binarizer.msgpack`` +
+    ``configs_binarizer.json``, ``strokes_{encoder,decoder}.msgpack`` (+
+    ``strokes_projection.msgpack``) + ``configs_strokes.json``. Each msgpack
+    file holds the variables dict (``{"params": tree}``, with
+    ``"batch_stats"`` for batch norms), as the JAX package's
+    ``save_variables`` writes it."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     if bin_tree is not None:
-        write_msgpack({"params": bin_tree}, out / "binarizer.msgpack")
+        write_msgpack(_variables(bin_tree), out / "binarizer.msgpack")
         (out / "configs_binarizer.json").write_text(
             json.dumps(bin_config.export_dict(), indent=1))
     if encoder_tree is not None:
-        write_msgpack({"params": encoder_tree},
+        write_msgpack(_variables(encoder_tree),
                       out / "strokes_encoder.msgpack")
-        write_msgpack({"params": decoder_tree},
+        write_msgpack(_variables(decoder_tree),
                       out / "strokes_decoder.msgpack")
+        if projection_tree is not None:
+            write_msgpack(_variables(projection_tree),
+                          out / "strokes_projection.msgpack")
         (out / "configs_strokes.json").write_text(
             json.dumps(strokes_config.export_dict(), indent=1))
 
@@ -506,9 +629,11 @@ def materialize_model_dir(model_dir, bin_config=None, strokes_config=None,
     bin_config = bin_config or BinarizerConfig()
     strokes_config = strokes_config or StrokesConfig()
     encoder, decoder = init_strokes(strokes_config, seed)
+    proj = init_projection(strokes_config, seed)
     save_model_files(
-        model_dir, to_flax_unet(init_binarizer(bin_config, seed).state_dict(),
-                                len(bin_config.features)), bin_config,
-        to_flax_encoder(encoder.state_dict(),
-                        ARCHS[strokes_config.encoder_arch][0]),
-        to_flax_decoder(decoder.state_dict()), strokes_config)
+        model_dir, unet_variables(init_binarizer(bin_config, seed).state_dict(),
+                                  len(bin_config.features)), bin_config,
+        encoder_variables(encoder.state_dict(),
+                          ARCHS[strokes_config.encoder_arch][0]),
+        to_flax_decoder(decoder.state_dict()), strokes_config,
+        None if proj is None else to_flax_projection(proj.state_dict()))

@@ -1,7 +1,7 @@
 """The port's CLI end to end on the CPU against the committed goldens, its
 device policy, and the import guard: the port and ``chip_smoke.py`` import
-and run with JAX, flax, optax, PIL, msgpack, ml_dtypes and the JAX package
-made unimportable."""
+and run with JAX, flax, optax, PIL, msgpack, ml_dtypes, onnx and the JAX
+package made unimportable."""
 
 import json
 import subprocess
@@ -76,6 +76,10 @@ class Blocker(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Blocker())
+# onnx is blocked as absent: importing it raises, and torch, which probes
+# for it with importlib.util.find_spec, is told that it is not installed.
+sys.modules["onnx"] = None
+BLOCKED.add("onnx")
 repo, models, inp, out = sys.argv[1:5]
 sys.path.insert(0, repo)
 import stroke_derenderer_tpu_torch as pkg
@@ -109,10 +113,14 @@ assert train_main(["--device", "cpu", "--model", "both", "--steps", "2",
                    "tiny", "--se-dims", "16,16,16", "--seq-len", "12",
                    "--out", out + "_t"], num_workers=1) == 0
 assert entrypoint(["--init-models", out + "_m"]) == 0
+assert entrypoint(["-models", models, "--export-onnx", out + "_x"]) == 0
+assert entrypoint(["-models", out + "_x", "-input", inp, "--output",
+                   out + "_o", "--device", "cpu"]) == 0
 dec = initialize_sessions(models, device="cpu")[1].decoder
 assert greedy_decode(dec, torch.zeros(2, 196, dec.enc_att_w.shape[0]), 4,
                      fused=True).shape == (2, 4)
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+leaked = sorted(m for m, mod in sys.modules.items()
+                if m.split(".")[0] in BLOCKED and mod is not None)
 assert not leaked, leaked
 print("GUARD OK", len(names))
 """
@@ -121,10 +129,10 @@ print("GUARD OK", len(names))
 def test_import_guard(tmp_path):
     """Every port module (the server's, the evaluator's and the trainer's
     too) and chip_smoke.py import, and the CLI (greedy, --decode beam,
-    --batch, --preset real, --init-models), the evaluator's main, the
-    trainer's main (both models, 2 steps) and the fused-attention greedy
-    entry run a tiny model on the CPU, with the JAX stack, PIL and msgpack
-    unimportable."""
+    --batch, --preset real, --init-models, --export-onnx and -models on the
+    exported ONNX dir), the evaluator's main, the trainer's main (both
+    models, 2 steps) and the fused-attention greedy entry run a tiny model
+    on the CPU, with the JAX stack, PIL, msgpack and onnx unimportable."""
     from stroke_derenderer_tpu.config import BinarizerConfig, StrokesConfig
     from stroke_derenderer_tpu.weights.store import materialize_model_dir
     models, inp = tmp_path / "models", tmp_path / "in"
@@ -152,3 +160,6 @@ def test_import_guard(tmp_path):
               "ckpt_captioner/step_00000002/opt_state.msgpack"):
         assert (tmp_path / "out_t" / f).exists(), f
     assert (tmp_path / "out_m" / "strokes_encoder.msgpack").exists()
+    assert (tmp_path / "out_x" / "decoder_iter.onnx").exists()
+    assert (tmp_path / "out_o" / "tiny_STROKES.json").exists()
+    assert "[info] importing reference ONNX models" in proc.stdout

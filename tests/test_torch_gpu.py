@@ -538,3 +538,48 @@ def test_train_step_on_card(model):
             assert float((gc - g).abs().max()) <= 1e-3 * float(
                 g.abs().max()), k
         assert float((pc - p).abs().max()) <= 2 * lr + 1e-6, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_at_encoder_width_2048(dtype):
+    """K1 against its plain version on a random decoder that reads a
+    ResNet-50's 2048 features (no projection), token for token."""
+    dev = _card()
+    from stroke_derenderer_tpu_torch.config import StrokesConfig
+    dt = getattr(torch, dtype)
+    _, dec = tw.init_strokes(StrokesConfig(encoder_arch="resnet50",
+                                           compute_dtype=dtype), seed=3)
+    dec = dec.to(dev)
+    assert dec.enc_att_w.shape[0] == 2048
+    rng = np.random.default_rng(4)
+    enc = torch.from_numpy(np.maximum(rng.normal(0.5, 1.0, (4, 196, 2048)),
+                                      0).astype(np.float32)).to(dev, dt)
+    before = fd.launch_count
+    got = fd.fused_greedy_decode(dec, enc, 384)
+    assert fd.launch_count == before + 1
+    ep, (h, c) = dec.project_encoding(enc), dec.init_state(enc)
+    want = fd.fused_greedy_decode_plain(enc, ep, h, c, dec.weights(dt), 384)
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.gpu
+def test_cli_on_an_onnx_dir_on_card(tmp_path):
+    """``--export-onnx`` of ``models_demo``, then the CLI on the exported
+    dir on the card: imported on the fly, K1 launched, the golden mask."""
+    _card()
+    from stroke_derenderer_tpu_torch.cli import entrypoint
+    from stroke_derenderer_tpu_torch.io import read_png
+    assert entrypoint(["-models", str(REPO / "models_demo"), "--export-onnx",
+                       str(tmp_path / "onnx")]) == 0
+    (tmp_path / "in").mkdir()
+    (tmp_path / "in" / "golden_input.png").write_bytes(
+        (REPO / "tests" / "golden" / "golden_input.png").read_bytes())
+    before = fd.launch_count
+    assert entrypoint(["-models", str(tmp_path / "onnx"), "-input",
+                       str(tmp_path / "in"), "--output",
+                       str(tmp_path / "out")]) == 0
+    assert fd.launch_count == before + 1
+    got = read_png(tmp_path / "out" / "golden_input_BINARIZED.png")
+    want = read_png(REPO / "tests" / "golden" / "expected_BINARIZED.png")
+    assert (got == want).mean() >= 0.999

@@ -1,4 +1,4 @@
-"""``chip_smoke.py`` rehearsed on the CPU, all fourteen phases: the card is
+"""``chip_smoke.py`` rehearsed on the CPU, all fifteen phases: the card is
 faked (availability, name, events, ``nvidia-smi``), the device is the CPU,
 the server listens on 127.0.0.1, and the wrappers of
 K1, K2 and K3 run their plain versions (K3's with bfloat16 streams, as on
@@ -9,7 +9,10 @@ and two synthetic samples, with its bars against the JAX reference opened
 (the decode is cut to a few steps here). The train phase holds the shipped
 models' steps to the JAX reference with the card's bars, and runs its
 recipe, resume, cache and from-scratch runs on a tiny model dir for a few
-steps at batch 2, with one loader worker."""
+steps at batch 2, with one loader worker. The onnx phase exports and runs
+``models_demo`` as on the card, and its random upstream-shaped model is
+shrunk to tiny widths (a one-level UNet, the tiny encoder, a 64 -> 12
+projection)."""
 
 import json
 import sys
@@ -121,6 +124,13 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(chip_smoke, "K1_BATCHES", (1, 3))
     monkeypatch.setattr(chip_smoke, "K2_BATCH", 3)
     monkeypatch.setattr(chip_smoke, "K3_BATCHES", (1, 3))
+    monkeypatch.setattr(chip_smoke, "ONNX_VARIANT_BIN", {
+        "norm": "batch", "features": (8,), "bottleneck": 16})
+    monkeypatch.setattr(chip_smoke, "ONNX_VARIANT_SE", {
+        "encoder_arch": "tiny", "encoder_norm": "batch", "projection_dim": 12,
+        "embed_dim": 16, "attention_dim": 16, "decoder_dim": 16})
+    monkeypatch.setattr(chip_smoke, "ONNX_K1_BATCHES", (2, 3))
+    monkeypatch.setattr(chip_smoke, "ONNX_K2_BATCH", 2)
     real = tmp_path / "real"
     real.mkdir()
     for stem in ("real00_line_hearts", "real01_line_grid"):
@@ -182,9 +192,30 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
     assert 0 < by_path["K1"].pop("eval")
     assert by_path["K1"].pop("train") == 1
     assert by_path["K1"] == {"main": 45, "batch": 1, "serve": served,
-                             "refine": 45}
+                             "refine": 45, "onnx": 45, "onnx-variant": 1}
     assert by_path["K2"].pop("real-beam") >= 2
-    assert by_path["K2"] == {"main-beam": 45, "batch-beam": 1}
+    assert by_path["K2"] == {"main-beam": 45, "batch-beam": 1,
+                             "onnx-beam": 1}
+    # onnx: models_demo through ONNX and back gives phase 4's outputs; the
+    # variant's K1 and K2 comparisons at its projected and unprojected
+    # widths.
+    onnx = record["onnx"]
+    assert set(onnx["export_bytes"]) == {
+        "binarizer.onnx", "encoder.onnx", "decoder_init_hc.onnx",
+        "decoder_embedding.onnx", "decoder_iter.onnx",
+        "configs_binarizer.json", "configs_strokes.json"}
+    assert onnx["cli"]["per_image"]["differing_px"] == 0
+    assert onnx["cli"]["per_image"]["strokes_identical"] == 45
+    assert onnx["variant_binarize"]["card_vs_cpu_agree"] == 1.0
+    cases = [(c["kernel"], c["case"], c["dtype"]) for c in onnx["checks"]]
+    for b in (2, 3):
+        for e in ("projected E=12", "unprojected E=64"):
+            for dt in ("float32", "bfloat16"):
+                assert ("K1", f"{e} B={b}", dt) in cases
+    assert {c for c in cases if c[0] == "K2"} == {
+        ("K2", "projected E=12 B=2", "float32"),
+        ("K2", "projected E=12 B=2", "bfloat16")}
+    assert all(c["ok"] and c["grid"] == 7 for c in onnx["checks"])
     # --preset real: every run's prints, the host seconds of the three
     # wrapped functions, coverage that the passes do not lower, and K1 on
     # the residual rows against its plain version.
