@@ -142,6 +142,32 @@ non-zero and prints no result:
    ``tests/golden/jax_cpu_eval.json`` (``scripts/jax_cpu_eval.py``): DTW
    within the JAX run's ``stroke_dtw_ci95``, F1 (and the 1 px F1) within
    ``EVAL_F1_TOL``, coverage within ``EVAL_COVERAGE_TOL``.
+16. int8: ``--quant int8`` (``ops/quant.py``: im2col and
+   ``torch._int_mm``, no kernel of the repo). ``int8_conv2d`` through
+   ``layers.conv`` on the card against the same call on the CPU at each
+   ``INT8_CONVS`` shape, float32 and bf16: the int32 sums equal and the
+   outputs bit for bit; each one's ms beside cuDNN's float conv. The JAX
+   package's demo-weight bars, the port's int8 against its bf16 on the
+   card (``line_tile``): UNet mask agreement >= ``INT8_AGREE``, ink IoU >=
+   ``INT8_IOU``, encoder feature cosine > ``INT8_COSINE``. ``cli.run`` with
+   int8 on the 45 images: K1 once per image with glyphs, the golden mask
+   and the masks against phase 4's on at least ``INT8_AGREE``; one
+   ``--batch`` run (one K1 launch) and ``--decode beam`` on the golden
+   image (one K2 launch). Then ``evaluate_real`` greedy and
+   ``evaluate_full`` mixed with int8, against the JAX package's int8 runs
+   in ``tests/golden/jax_cpu_eval_int8.json``: each run must meet every
+   bar of phase 15 against one of them, the default run or a variant with
+   flax's normalization statistics summed in another float32 order
+   (``scripts/jax_eval_blocked_stats.py``; under int8 such a rounding
+   alone moves the JAX package's real-ink coverage by 0.04).
+17. two_stage: ``cli.run_two_stage`` (``--two-stage 8``) on the 45 images,
+   bf16 and int8: one K1 launch per chunk, and the masks and strokes files
+   those of ``cli.run_batched`` over the same chunks in turn; each stage's
+   busy seconds (host clock around ``binarize_images`` and
+   ``process_images``, each ending in a download), the wall seconds of
+   ``process_batched``, the overlap (A + B - wall) / min(A, B), and s/image
+   against the sequential chunks and against phase 9's ``--batch``. Then
+   ``TwoStagePipeline.process`` (image by image): phase 4's files.
 
 K1 and K2 are one cooperative launch each per decode call; phases 3 and 5
 record each launch's grid, its grid barriers per step and the time of one
@@ -223,6 +249,32 @@ TRAIN_WINDOW = 10             # steps in each mean of the from-scratch check
 TRAIN_SCRATCH = ("--bin-features", "16,32,64", "--encoder-arch", "resnet18",
                  "--lr", "1e-3")  # the from-scratch runs: models_demo widths
 TRAIN_WORKERS = 2             # loader threads (the trainer's default)
+# Phase 16 (int8): int8_conv2d card against CPU at the models' geometries,
+# (label, batch, in, height, width, out, kernel, stride, pad, bias): the
+# UNet's 3x3 convs at its widths and the gates' 1x1 convs on 8 tiles of
+# 128 x 384, the encoder's stem, a stride-2 3x3 and a stride-2 1x1 proj on
+# 16 crops of 224 x 224.
+INT8_CONVS = (
+    ("unet 3x3 16", 8, 16, 128, 384, 16, 3, 1, 1, False),
+    ("unet 3x3 32", 8, 32, 64, 192, 32, 3, 1, 1, False),
+    ("unet 3x3 64", 8, 64, 32, 96, 64, 3, 1, 1, False),
+    ("unet 3x3 128", 8, 128, 16, 48, 128, 3, 1, 1, False),
+    ("gate 1x1 16->8", 8, 16, 128, 384, 8, 1, 1, 0, True),
+    ("gate 1x1 32->16", 8, 32, 64, 192, 16, 1, 1, 0, True),
+    ("gate 1x1 64->32", 8, 64, 32, 96, 32, 1, 1, 0, True),
+    ("stem 7x7 s2 p3", 16, 3, 224, 224, 64, 7, 2, 3, False),
+    ("3x3 s2", 16, 64, 56, 56, 128, 3, 2, 1, False),
+    ("proj 1x1 s2", 16, 64, 56, 56, 128, 1, 2, 0, False),
+)
+INT8_AGREE = 0.98    # int8 masks against bf16 ones (the JAX package's bar)
+INT8_IOU = 0.85      # ink IoU, int8 against bf16, demo weights
+INT8_COSINE = 0.98   # encoder features, int8 against bf16, demo weights
+JAX_EVAL_INT8 = GOLDEN / "jax_cpu_eval_int8.json"  # phase 16's reference
+# Phase 17 (two_stage): the chunk size of --two-stage.
+TWO_STAGE_CHUNK = 8
+# Phases 16 and 17 drive the CLI on the first this many inputs (all 45:
+# None).
+SLICE_INPUTS = None
 
 # H100 SXM published peaks (NVIDIA data sheet), used for bound_ms.
 HBM_BYTES_PER_S = 3.35e12
@@ -1001,10 +1053,13 @@ def onnx_phase(cli, read_png, load_image, imgs, main_out, counters,
 
 
 def drive_cli(cli, read_png, imgs, binarizer, estimator, counters,
-              runner=None) -> tuple[dict, dict]:
-    """``runner`` (``cli.run``, or ``cli.run_batched``) on the images with
-    every module's ``launch_count`` in ``counters`` set to 0 just before
-    and read just after; the checks of phases 4, 7, 8, 9 and 10. Returns the
+              runner=None, mask_agree: float = MASK_AGREE
+              ) -> tuple[dict, dict]:
+    """``runner`` (``cli.run``, ``cli.run_batched``, ``cli.run_two_stage``
+    or a runner of the same signature) on the images with every module's
+    ``launch_count`` in ``counters`` set to 0 just before and read just
+    after; the checks of phases 4, 7, 8, 9 and 10 (the golden mask against
+    the expected one on at least ``mask_agree`` of its pixels). Returns the
     record and, per image, its mask (bool) and strokes as written."""
     import numpy as np
     import torch
@@ -1038,7 +1093,7 @@ def drive_cli(cli, read_png, imgs, binarizer, estimator, counters,
         want = read_png(GOLDEN / "expected_BINARIZED.png")
         if got.shape != want.shape:
             raise SystemExit(f"golden mask shape {got.shape} != {want.shape}")
-        mask_agree = float((got == want).mean())
+        golden_agree = float((got == want).mean())
         strokes = json.loads((Path(out) / "golden_input_STROKES.json")
                              .read_text())
         expected = json.loads((GOLDEN / "expected_STROKES.json").read_text())
@@ -1046,17 +1101,22 @@ def drive_cli(cli, read_png, imgs, binarizer, estimator, counters,
                                            r"binarize", text)]
     t_se = [float(x) for x in re.findall(r"took ([0-9.]+) seconds to "
                                           r"estimate", text)]
+    t_e2e = [float(x) for x in re.findall(r"took ([0-9.]+) seconds e2e",
+                                           text)]
     rec = {
         "images": len(imgs), "images_with_glyphs": with_glyphs,
-        "launches": launches, "golden_mask_agree": mask_agree,
+        "launches": launches, "golden_mask_agree": golden_agree,
         "golden_mask_differing_px": int((got != want).sum()),
         "golden_strokes_chamfer_px": chamfer(strokes, expected),
-        "run_s": t_run, "binarize_s_per_image": float(np.mean(t_bin)),
-        "strokes_s_per_image": float(np.mean(t_se)),
-        "binarize_s_first": t_bin[0], "strokes_s_first": t_se[0]}
+        "run_s": t_run}
+    for key, ts in (("binarize", t_bin), ("strokes", t_se), ("e2e", t_e2e)):
+        if ts:
+            rec[f"{key}_s_per_image"] = float(np.mean(ts))
+            rec[f"{key}_s_first"] = ts[0]
     print(json.dumps(rec), flush=True)
-    if mask_agree < MASK_AGREE:
-        raise SystemExit(f"golden mask agreement {mask_agree} < {MASK_AGREE}")
+    if golden_agree < mask_agree:
+        raise SystemExit(f"golden mask agreement {golden_agree} < "
+                         f"{mask_agree}")
     return rec, outputs
 
 
@@ -1255,6 +1315,28 @@ def against_jax(name: str, got: dict, ref: dict) -> list[str]:
         misses.append(f"{name}: stroke_coverage {got['stroke_coverage']} "
                       f"against JAX {ref['stroke_coverage']}")
     return misses
+
+
+def eval_against(name: str, fn, references: dict) -> dict:
+    """One evaluator run, ``fn()``, held to the run ``name`` of each
+    reference (label -> a golden file's runs): its record, with each
+    reference's misses and, in "within", the labels of those whose every
+    bar it meets."""
+    import torch
+    t_run = time.monotonic()
+    got = fn()
+    torch.cuda.synchronize()
+    refs = {r: runs[name]["result"] for r, runs in references.items()}
+    rec = {"seconds": time.monotonic() - t_run, "result": got,
+           "jax_cpu": refs, "misses": {r: against_jax(name, got, ref)
+                                       for r, ref in refs.items()}}
+    rec["within"] = [r for r, m in rec["misses"].items() if not m]
+    print(json.dumps({"eval": name, "seconds": rec["seconds"],
+                      "within": rec["within"],
+                      "port_vs_jax_cpu": {k: [got[k]] + [
+                          ref.get(k) for ref in refs.values()]
+                          for k in got}}), flush=True)
+    return rec
 
 
 def train_golden_batches(golden: dict) -> dict:
@@ -1500,6 +1582,245 @@ def train_phase(cli, counters: dict, dev) -> dict:
                          f"{rec['cli']}")
     import shutil
     shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+def line_tile(h: int = 128, w: int = 384):
+    """A handwriting-like tile, dark curls on white (the JAX package's
+    ``tests/test_quant.py:_line_tile``)."""
+    import numpy as np
+    img = np.full((h, w, 3), 255, np.uint8)
+    t = np.linspace(0, 4 * np.pi, 900)
+    for k in range(3):
+        xs = (60 + 120 * k + 45 * np.cos(t * (1 + k))).astype(int)
+        ys = (h // 2 + 40 * np.sin(t + k)).astype(int)
+        img[np.clip(ys, 0, h - 1), np.clip(xs, 0, w - 1)] = 0
+        img[np.clip(ys + 1, 0, h - 1), np.clip(xs, 0, w - 1)] = 0
+    return img
+
+
+def int8_conv_checks(dev) -> list[dict]:
+    """``int8_conv2d`` (through ``layers.conv``) on the card against the
+    same call on the CPU at each ``INT8_CONVS`` shape, float32 and bf16:
+    the int32 sums equal and the outputs bit for bit the same; each
+    one's ms beside cuDNN's float conv of the same shape and dtype."""
+    import numpy as np
+    import torch
+    from stroke_derenderer_tpu_torch.models.layers import conv
+    from stroke_derenderer_tpu_torch.ops import quant
+    rng = np.random.default_rng(0)
+    out = []
+    for label, b, cin, h, w, cout, k, st, pad, bias in INT8_CONVS:
+        layer = torch.nn.Conv2d(cin, cout, k, st, pad, bias=bias)
+        with torch.no_grad():
+            layer.weight.copy_(torch.from_numpy(
+                rng.normal(size=layer.weight.shape) * 0.1))
+            if bias:
+                layer.bias.copy_(torch.from_numpy(rng.normal(size=cout)))
+        card = torch.nn.Conv2d(cin, cout, k, st, pad, bias=bias).to(dev)
+        card.load_state_dict(layer.state_dict())
+        x32 = rng.normal(size=(b, cin, h, w)).astype(np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(x32).to(dtype)
+            xd = x.to(dev)
+            with torch.inference_mode():
+                xq, _ = quant._quantize(x)
+                wq, _ = quant._quantize(layer.weight.to(dtype), (1, 2, 3))
+                acc_same = torch.equal(
+                    quant.conv2d_int32(xq.to(dev), wq.to(dev), st,
+                                       pad).cpu(),
+                    quant.conv2d_int32(xq, wq, st, pad))
+                got = conv(xd, card, st, pad, quant="int8").cpu()
+                want = conv(x, layer, st, pad, quant="int8")
+                ms = cuda_ms(lambda: conv(xd, card, st, pad, quant="int8"),
+                             5)
+                cudnn_ms = cuda_ms(lambda: conv(xd, card, st, pad), 5)
+            out.append({"case": label, "dtype": str(dtype)[6:],
+                        "shape": [b, cin, h, w], "out": cout, "k": k,
+                        "stride": st, "int32_equal": acc_same,
+                        "bit_equal": torch.equal(got, want),
+                        "ms": ms, "cudnn_ms": cudnn_ms})
+            print(json.dumps(out[-1]), flush=True)
+    return out
+
+
+def int8_phase(cli, read_png, imgs, main_out, counters, dev, binarizer,
+               estimator, sessions: dict) -> dict:
+    """Phase 16: ``--quant int8`` (see the module docstring). ``sessions``
+    holds the int8 pipelines: "bin", "greedy" and "beam"."""
+    import numpy as np
+    import torch
+    from stroke_derenderer_tpu_torch.eval import run as eval_run
+    from stroke_derenderer_tpu_torch.ops import quant
+    rec: dict = {"convs": int8_conv_checks(dev)}
+    bad = [c for c in rec["convs"] if not (c["int32_equal"]
+                                           and c["bit_equal"])]
+    if bad:
+        raise SystemExit(f"int8 conv on the card differs from the CPU: {bad}")
+    q_bin, q_est, q_beam = (sessions[k] for k in ("bin", "greedy", "beam"))
+    # The demo-weight bars of the JAX package's tests/test_quant.py, the
+    # port's int8 against its bf16 on the card.
+    with torch.inference_mode():
+        x = torch.from_numpy(line_tile()[None].astype(np.float32)
+                             / 255.0).to(dev)
+        thr = binarizer.config.bin_thr
+        m_f = (binarizer.model(x)[..., 0] > thr).cpu().numpy()
+        m_q = (q_bin.model(x)[..., 0] > thr).cpu().numpy()
+        cfg = estimator.config
+        glyph = line_tile(224, 224).astype(np.float32) / 255.0
+        g = torch.from_numpy(((glyph - np.asarray(cfg.mean, np.float32))
+                              / np.asarray(cfg.std, np.float32))[None])
+        f_f = estimator.encoder(g.to(dev)).flatten().double().cpu().numpy()
+        f_q = q_est.encoder(g.to(dev)).flatten().double().cpu().numpy()
+    union = float((m_f | m_q).sum())
+    rec["demo"] = {
+        "mask_agree": float((m_f == m_q).mean()),
+        "ink_iou": float((m_f & m_q).sum()) / union if union else 1.0,
+        "encoder_cosine": float(f_f @ f_q / (np.linalg.norm(f_f)
+                                             * np.linalg.norm(f_q)))}
+    print(json.dumps({"int8_demo": rec["demo"]}), flush=True)
+    demo = rec["demo"]
+    if (demo["mask_agree"] < INT8_AGREE or demo["ink_iou"] < INT8_IOU
+            or not demo["encoder_cosine"] > INT8_COSINE):
+        raise SystemExit(f"int8 against bf16 on the demo weights: {demo}")
+    # The CLI per image, batched, and beam on the golden image.
+    calls = quant.call_count
+    rec["cli"], q_out = drive_cli(cli, read_png, imgs, q_bin, q_est,
+                                  counters, mask_agree=INT8_AGREE)
+    rec["conv_calls"] = quant.call_count - calls
+    rec["cli"]["against_bf16"] = against_per_image(q_out, main_out)
+    k1 = rec["cli"]["launches"]["K1"]
+    if (k1 != rec["cli"]["images_with_glyphs"] or rec["conv_calls"] == 0
+            or rec["cli"]["against_bf16"]["agree"] < INT8_AGREE):
+        raise SystemExit(f"int8 per image: {rec['cli']}")
+    rec["batch"], qb_out = drive_cli(cli, read_png, imgs, q_bin, q_est,
+                                     counters, cli.run_batched,
+                                     mask_agree=INT8_AGREE)
+    rec["batch"]["against_per_image"] = against_per_image(qb_out, q_out)
+    rec["beam"], _ = drive_cli(cli, read_png, imgs[:1], q_bin, q_beam,
+                               counters, mask_agree=INT8_AGREE)
+    if (rec["batch"]["launches"] != {"K1": 1, "K2": 0, "K3": 0}
+            or rec["beam"]["launches"] != {"K1": 0, "K2": 1, "K3": 0}):
+        raise SystemExit(f"int8 launches: batch {rec['batch']['launches']},"
+                         f" beam {rec['beam']['launches']}")
+    # The evaluator against the JAX package's int8 runs on the CPU: its
+    # default run and its runs with the normalization statistics summed in
+    # another float32 order (``variants``), each as valid a reference.
+    golden = json.loads(JAX_EVAL_INT8.read_text())
+    references = {"default": golden["runs"]} | {
+        v: d["runs"] for v, d in golden.get("variants", {}).items()}
+    q_ov = {"max_length": MAX_LENGTH, "quant": "int8"}
+    runs = {
+        "real_greedy": lambda: eval_run.evaluate_real(
+            MODELS, REAL_DATA, se_overrides=q_ov,
+            bin_overrides={"quant": "int8"}, device=dev),
+        "mixed_greedy": lambda: eval_run.evaluate_full(
+            MODELS, n=EVAL_MIXED_N, seed=0, style="mixed", se_overrides=q_ov,
+            bin_overrides={"quant": "int8"}, device=dev)}
+    for mod in counters.values():
+        mod.launch_count = 0
+    rec["eval"] = {name: eval_against(name, fn, references)
+                   for name, fn in runs.items()}
+    misses = [m for r in rec["eval"].values() if not r["within"]
+              for ms in r["misses"].values() for m in ms]
+    rec["eval"]["launches"] = {name: mod.launch_count
+                               for name, mod in counters.items()}
+    if misses:
+        raise SystemExit("int8 eval against the JAX CPU reference: "
+                         + "; ".join(misses))
+    return rec
+
+
+def two_stage_phase(cli, read_png, imgs, main_out, counters, runs: dict,
+                    batch_rec: dict) -> dict:
+    """Phase 17: ``--two-stage`` (see the module docstring). ``runs`` maps
+    "none" and "int8" to their (binarizer, estimator) pair."""
+    from stroke_derenderer_tpu_torch.parallel import TwoStagePipeline
+    from stroke_derenderer_tpu_torch.parallel import two_stage
+
+    chunk = TWO_STAGE_CHUNK
+    n_chunks = -(-len(imgs) // chunk)
+
+    def two_stage_runner(imgs_, b, e, out):
+        return cli.run_two_stage(imgs_, b, e, out, chunk_size=chunk)
+
+    def chunks_runner(imgs_, b, e, out):
+        return sum(cli.run_batched(imgs_[c:c + chunk], b, e, out)
+                   for c in range(0, len(imgs_), chunk))
+
+    def per_image_runner(imgs_, b, e, out):
+        out_dir = Path(out)
+        masks, strokes = TwoStagePipeline(b, e).process(
+            [img for img, _ in imgs_])
+        for (img, name), mask, s in zip(imgs_, masks, strokes):
+            cli._save_mask(out_dir, name, mask)
+            cli._save_strokes(out_dir, name, img, s,
+                              img.shape[0] / mask.shape[0], False)
+        return len(imgs_)
+
+    @contextlib.contextmanager
+    def stage_clock(b, e):
+        """Host seconds inside each stage's calls (each ends in a
+        download, so on the card it waits for its kernels) and the wall
+        seconds of ``process_batched``."""
+        spent = {"a": 0.0, "b": 0.0, "wall": 0.0}
+        real = (b.binarize_images, e.process_images,
+                two_stage.TwoStagePipeline.process_batched)
+
+        def timed(key, fn):
+            def call(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    spent[key] += time.perf_counter() - t
+            return call
+
+        b.binarize_images = timed("a", real[0])
+        e.process_images = timed("b", real[1])
+        two_stage.TwoStagePipeline.process_batched = timed("wall", real[2])
+        try:
+            yield spent
+        finally:
+            del b.binarize_images, e.process_images
+            two_stage.TwoStagePipeline.process_batched = real[2]
+
+    rec: dict = {"chunk": chunk, "chunks": n_chunks}
+    for quant, (b, e) in runs.items():
+        bar = MASK_AGREE if quant == "none" else INT8_AGREE
+        with stage_clock(b, e) as two:
+            r, two_out = drive_cli(cli, read_png, imgs, b, e, counters,
+                                   two_stage_runner, mask_agree=bar)
+        with stage_clock(b, e) as seq:
+            r_seq, seq_out = drive_cli(cli, read_png, imgs, b, e, counters,
+                                       chunks_runner, mask_agree=bar)
+        r["against_sequential_chunks"] = against_per_image(two_out, seq_out)
+        r["stage_s"] = {"a": two["a"], "b": two["b"], "wall": two["wall"]}
+        r["overlap"] = ((two["a"] + two["b"] - two["wall"])
+                        / min(two["a"], two["b"]))
+        r["s_per_image"] = {
+            "two_stage": two["wall"] / len(imgs),
+            "sequential_chunks": (seq["a"] + seq["b"]) / len(imgs),
+            "batch": batch_rec["binarize_s_per_image"]
+            + batch_rec["strokes_s_per_image"]}
+        r["sequential_launches"] = r_seq["launches"]
+        rec[quant] = r
+        print(json.dumps({"two_stage": quant} | {k: r[k] for k in (
+            "launches", "against_sequential_chunks", "stage_s", "overlap",
+            "s_per_image")}), flush=True)
+        same = r["against_sequential_chunks"]
+        if (r["launches"] != {"K1": n_chunks, "K2": 0, "K3": 0}
+                or same["differing_px"] or same["strokes_identical"]
+                != len(imgs)):
+            raise SystemExit(f"two-stage ({quant}): {r}")
+    b, e = runs["none"]
+    rec["per_image"], pi_out = drive_cli(cli, read_png, imgs, b, e, counters,
+                                         per_image_runner)
+    rec["per_image"]["against_per_image"] = against_per_image(pi_out,
+                                                              main_out)
+    same = rec["per_image"]["against_per_image"]
+    if same["differing_px"] or same["strokes_identical"] != len(imgs):
+        raise SystemExit(f"two-stage per image: {rec['per_image']}")
     return rec
 
 
@@ -2034,21 +2355,11 @@ def main(argv=None) -> int:
         "mixed_greedy": lambda: eval_run.evaluate_full(
             MODELS, n=EVAL_MIXED_N, seed=0, style="mixed",
             se_overrides={"max_length": MAX_LENGTH}, device=dev)}
-    eval_rec, misses = {}, []
     for mod in counters.values():
         mod.launch_count = 0
-    for name, fn in eval_runs.items():
-        t_run = time.monotonic()
-        got = fn()
-        torch.cuda.synchronize()
-        ref = reference[name]["result"]
-        eval_rec[name] = {"seconds": time.monotonic() - t_run,
-                          "result": got, "jax_cpu": ref,
-                          "misses": against_jax(name, got, ref)}
-        misses += eval_rec[name]["misses"]
-        print(json.dumps({"eval": name, "seconds": eval_rec[name]["seconds"],
-                          "port_vs_jax_cpu": {k: [got[k], ref.get(k)]
-                                              for k in got}}), flush=True)
+    eval_rec = {name: eval_against(name, fn, {"default": reference})
+                for name, fn in eval_runs.items()}
+    misses = [m for r in eval_rec.values() for m in r["misses"]["default"]]
     eval_launches = {name: mod.launch_count for name, mod in counters.items()}
     record["eval"] = eval_rec | {"launches": eval_launches}
     if misses:
@@ -2059,15 +2370,64 @@ def main(argv=None) -> int:
     _phase("eval", t0, f"{len(eval_runs)} runs within the JAX CPU "
            f"reference's bars (DTW ci95, F1 {EVAL_F1_TOL}, coverage "
            f"{EVAL_COVERAGE_TOL}), {eval_launches['K1']} K1 launches")
+
+    # 16. --quant int8 --------------------------------------------------------
+    t0 = time.monotonic()
+    q_bin = {"quant": "int8"}
+    q_se = {"max_length": MAX_LENGTH, "quant": "int8"}
+    q_binarizer, q_estimator = cli.initialize_sessions(
+        MODELS, device=dev, se_overrides=q_se, bin_overrides=q_bin)
+    _, q_beam = cli.initialize_sessions(
+        MODELS, device=dev, bin_overrides=q_bin,
+        se_overrides=q_se | {"decode": "beam", "beam_size": BEAM})
+    slice_imgs = imgs[:SLICE_INPUTS]
+    int8_rec = int8_phase(cli, read_png, slice_imgs, main_out, counters, dev,
+                          binarizer, estimator, {
+                              "bin": q_binarizer, "greedy": q_estimator,
+                              "beam": q_beam})
+    record["int8"] = int8_rec
+    slowest = max(int8_rec["convs"], key=lambda c: c["ms"] / c["cudnn_ms"])
+    _phase("int8", t0, f"{len(int8_rec['convs'])} int8 convs card == CPU "
+           f"bit for bit (slowest against cuDNN: {slowest['case']} "
+           f"{slowest['dtype']} {slowest['ms']:.3f} vs "
+           f"{slowest['cudnn_ms']:.3f} ms); demo bars {int8_rec['demo']}; "
+           f"per image binarize {int8_rec['cli']['binarize_s_per_image']:.4f}"
+           f" s (bf16 {main_rec['binarize_s_per_image']:.4f}), strokes "
+           f"{int8_rec['cli']['strokes_s_per_image']:.4f} s (bf16 "
+           f"{main_rec['strokes_s_per_image']:.4f}); masks against bf16 "
+           f"{int8_rec['cli']['against_bf16']['agree']:.6f}; eval within "
+           f"the JAX int8 CPU reference's bars")
+
+    # 17. --two-stage ---------------------------------------------------------
+    t0 = time.monotonic()
+    two_rec = two_stage_phase(cli, read_png, slice_imgs, main_out, counters, {
+        "none": (binarizer, estimator),
+        "int8": (q_binarizer, q_estimator)}, batch_rec)
+    record["two_stage"] = two_rec
+    per = {q: two_rec[q]["s_per_image"] for q in ("none", "int8")}
+    _phase("two_stage", t0, f"--two-stage {two_rec['chunk']}: " + "; ".join(
+        f"{q}: {two_rec['chunks']} K1 launches, outputs as the sequential "
+        f"chunks', {per[q]['two_stage']:.4f} s/image (chunks "
+        f"{per[q]['sequential_chunks']:.4f}, --batch {per[q]['batch']:.4f}),"
+        f" overlap {two_rec[q]['overlap']:.3f}" for q in per)
+        + "; per-image mode as the per-image run")
     launches_by_path = {
         "K1": {"main": launches, "batch": batch_rec["launches"]["K1"],
                "serve": k1_served, "real": k1_real, "batch-real": k1_breal,
                "refine": real_rec["refine"]["launches"]["K1"],
-               "train": k1_train, "eval": eval_launches["K1"]}
+               "train": k1_train, "eval": eval_launches["K1"],
+               "int8": int8_rec["cli"]["launches"]["K1"],
+               "int8-batch": int8_rec["batch"]["launches"]["K1"],
+               "int8-eval": int8_rec["eval"]["launches"]["K1"],
+               "two-stage": two_rec["none"]["launches"]["K1"],
+               "two-stage-int8": two_rec["int8"]["launches"]["K1"],
+               "two-stage-per-image": two_rec["per_image"]["launches"]["K1"]}
         | onnx_rec["launches"]["K1"],
         "K2": {"main-beam": beam_launches,
                "batch-beam": bbeam_rec["launches"]["K2"],
-               "real-beam": k2_rbeam} | onnx_rec["launches"]["K2"],
+               "real-beam": k2_rbeam,
+               "int8-beam": int8_rec["beam"]["launches"]["K2"]}
+        | onnx_rec["launches"]["K2"],
         "K3": {"greedy_decode(fused=True)": None}}
 
     # kernel table and result ---------------------------------------------

@@ -4,7 +4,8 @@
         -input DIR --output DIR [--device cuda|cpu] \
         [--decode greedy|beam] [--beam-size K] [--batch] [--fused] \
         [--no-strokes] [--svg] [--preset reference|real] [--redecode C] \
-        [--redecode-passes K] [--refine PX] [--host-partition]
+        [--redecode-passes K] [--refine PX] [--host-partition] \
+        [--quant none|int8] [--two-stage [CHUNK]]
     python -m stroke_derenderer_tpu_torch.cli --init-models DIR
     python -m stroke_derenderer_tpu_torch.cli -models DIR --export-onnx OUT
 
@@ -19,13 +20,18 @@ the prints give the amortized time per image. ``--preset real`` (residual
 re-decode at coverage 0.9), ``--redecode``, ``--redecode-passes`` and
 ``--refine`` set the residual passes and the ink snap; explicit flags win
 over the preset. ``--host-partition`` builds the glyph crops on the host
-instead of the device (the same crops). ``--init-models DIR`` writes a
-randomly initialized model dir; weights missing from ``-models`` are drawn
-at random with a warning. ``-models`` may also be the upstream project's
-own ONNX model directory (``binarizer.onnx``, ``encoder.onnx``, the decoder
-graphs, ``projection.onnx`` where there is one, and the two config JSONs):
-it is imported on the fly (``weights.graph_import``). ``--export-onnx
-OUT`` writes a native ``-models`` directory in that layout
+instead of the device (the same crops). ``--quant int8`` runs the UNet's and
+the encoder's conv stacks in dynamic int8 (``ops.quant``); the decoder
+stays in its float dtype. ``--two-stage [CHUNK]`` takes
+:func:`run_two_stage`: binarization of chunk k + 1 beside the strokes of
+chunk k (``parallel.TwoStagePipeline``), the same files, amortized prints.
+``--init-models DIR`` writes a randomly initialized model dir; weights
+missing from ``-models`` are drawn at random with a warning. ``-models``
+may also be the upstream project's own ONNX model directory
+(``binarizer.onnx``, ``encoder.onnx``, the decoder graphs,
+``projection.onnx`` where there is one, and the two config JSONs): it is
+imported on the fly (``weights.graph_import``). ``--export-onnx OUT``
+writes a native ``-models`` directory in that layout
 (``weights.graph_export``) and exits. Runs on the card unless ``--device
 cpu`` is given.
 """
@@ -120,6 +126,18 @@ def parse_args(argv=None):
                         help="Build the glyph crops on the host "
                              "(pipeline.strokes.compute_partitions) and "
                              "upload them.")
+    parser.add_argument("--two-stage", type=int, nargs="?", const=8,
+                        default=0, metavar="CHUNK",
+                        help="Overlap: binarize chunk k+1 while chunk k's "
+                             "strokes decode (parallel.TwoStagePipeline, "
+                             "each stage on its own thread and CUDA "
+                             "stream). Optional value = chunk size "
+                             "(default 8).")
+    parser.add_argument("--quant", choices=["none", "int8"], default=None,
+                        help="Dynamic int8 quantization of the UNet and "
+                             "encoder conv stacks (ops/quant.py: im2col "
+                             "and an int8 GEMM with int32 sums). Any "
+                             "checkpoint runs in either mode.")
     return parser.parse_args(argv)
 
 
@@ -277,6 +295,38 @@ def run_batched(imgs, binarizer: Binarizer,
     return len(imgs)
 
 
+def run_two_stage(imgs, binarizer: Binarizer,
+                  estimator: StrokeEstimator | None, output_folder,
+                  chunk_size: int = 8, strokes: bool = True,
+                  svg: bool = False) -> int:
+    """Overlap mode: stage A (``binarize_images`` of a chunk) beside stage
+    B (``process_images`` of the chunk before it), each on its own thread
+    (``parallel.TwoStagePipeline``). The same files as :func:`run`; the
+    prints give the amortized time per image. Without strokes there is no
+    stage B, and :func:`run_batched` does the same work."""
+    out_dir = Path(output_folder)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if not imgs:
+        return 0
+    if not strokes or estimator is None:
+        return run_batched(imgs, binarizer, None, output_folder,
+                           strokes=False, svg=svg)
+    from stroke_derenderer_tpu_torch.parallel import TwoStagePipeline
+    pipe = TwoStagePipeline(binarizer, estimator)
+    t0 = time.time()
+    masks, all_strokes = pipe.process_batched([img for img, _ in imgs],
+                                              chunk_size=chunk_size)
+    t_img = round((time.time() - t0) / len(imgs), 4)
+    for (img, filename), mask, stroke_list in zip(imgs, masks, all_strokes):
+        bin_path = _save_mask(out_dir, filename, mask)
+        print(f"{filename} took {t_img} seconds e2e (two-stage amortized). "
+              f"Result is saved to {bin_path}")
+        st_path = _save_strokes(out_dir, filename, img, stroke_list,
+                                img.shape[0] / mask.shape[0], svg)
+        print(f"{filename} strokes saved to {st_path}")
+    return len(imgs)
+
+
 def load_images(img_filepaths):
     """paths -> [(RGB image, stem), ...]; unreadable files are skipped with
     an ``[error]`` line."""
@@ -332,9 +382,17 @@ def entrypoint(argv=None) -> int:
         return 0
     imgs = load_images(sorted(Path(args.input).glob("*.png")))
     se_overrides = strokes_overrides(args)
+    bin_overrides = {}
+    if args.quant:
+        se_overrides["quant"] = bin_overrides["quant"] = args.quant
     binarizer, estimator = initialize_sessions(
         args.models, device=args.device, se_overrides=se_overrides,
-        fused=args.fused)
+        fused=args.fused, bin_overrides=bin_overrides)
+    if args.two_stage:
+        run_two_stage(imgs, binarizer, estimator, args.output,
+                      chunk_size=args.two_stage,
+                      strokes=not args.no_strokes, svg=args.svg)
+        return 0
     runner = run_batched if args.batch else run
     runner(imgs, binarizer, estimator, args.output,
            strokes=not args.no_strokes, svg=args.svg)

@@ -39,6 +39,7 @@ class BinarizerConfig:
     bottleneck: int = 512
     norm: str = "group"
     compute_dtype: str = "bfloat16"
+    # "int8": the UNet's conv stacks contract in int8 (ops/quant.py).
     quant: str = "none"
     # Tile batches are padded to a multiple of this.
     batch_bucket: int = 8
@@ -101,7 +102,13 @@ class StrokesConfig:
     # Snap stroke points onto the ink within this many pixels (0 = off).
     refine_snap: float = 0.0
     compute_dtype: str = "bfloat16"
+    # "int8": the encoder's conv stacks contract in int8 (ops/quant.py); the
+    # decoder stays in compute_dtype.
     quant: str = "none"
+    # Under int8 the encoder's glyph batch is padded with blank crops to a
+    # multiple of this, as the JAX package pads it: the activation scale
+    # spans the whole batch, pad rows included.
+    glyph_bucket: int = 8
     device_partition: bool = True
     # process_images: the batch is split into this many sub-dispatches.
     io_chunks: int = 1

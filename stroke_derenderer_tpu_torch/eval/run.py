@@ -201,8 +201,8 @@ def main(argv=None):
                     help="report binarization F1 only (skips the stroke "
                          "stage)")
     ap.add_argument("--quant", choices=["none", "int8"], default=None,
-                    help="int8 conv stacks: not ported, int8 raises "
-                         "NotImplementedError")
+                    help="int8: dynamic int8 UNet and encoder conv stacks "
+                         "(ops/quant.py)")
     ap.add_argument("--data", default=None, metavar="DIR",
                     help="score on REAL labeled pairs from DIR "
                          "(data/real.py format) instead of synthetic "

@@ -6,7 +6,9 @@ SAME; GroupNorm has group size 8 and eps 1e-6; the stem max-pool is 3x3,
 stride 2, pad 1; the 196-position sequence of :func:`encode_postprocess`
 flattens in NHWC row-major order. ``norm`` is ``"group"`` (as shipped) or
 ``"batch"`` (running statistics, as an imported torch ResNet carries
-them).
+them). ``quant="int8"`` contracts every convolution (the stem, the blocks'
+convolutions and their ``proj``) in int8, as the JAX package does; the
+parameters are the same in either mode.
 """
 
 from __future__ import annotations
@@ -38,9 +40,10 @@ def _norm(kind: str, channels: int) -> nn.Module:
 
 class BasicBlock(nn.Module):
     def __init__(self, cin: int, features: int, stride: int,
-                 norm: str = "group"):
+                 norm: str = "group", quant: str = "none"):
         super().__init__()
         self.stride = stride
+        self.quant = quant
         self.convs = nn.ModuleList([
             nn.Conv2d(cin, features, 3, stride, 1, bias=False),
             nn.Conv2d(features, features, 3, 1, 1, bias=False)])
@@ -52,19 +55,21 @@ class BasicBlock(nn.Module):
             self.proj_norm = _norm(norm, features)
 
     def forward(self, x):
-        y = F.relu(normalize(conv(x, self.convs[0], self.stride, 1),
+        q = self.quant
+        y = F.relu(normalize(conv(x, self.convs[0], self.stride, 1, quant=q),
                              self.norms[0]))
-        y = normalize(conv(y, self.convs[1], 1, 1), self.norms[1])
+        y = normalize(conv(y, self.convs[1], 1, 1, quant=q), self.norms[1])
         res = x if self.proj is None else normalize(
-            conv(x, self.proj, self.stride), self.proj_norm)
+            conv(x, self.proj, self.stride, quant=q), self.proj_norm)
         return F.relu(y + res)
 
 
 class BottleneckBlock(nn.Module):
     def __init__(self, cin: int, features: int, stride: int,
-                 norm: str = "group"):
+                 norm: str = "group", quant: str = "none"):
         super().__init__()
         self.stride = stride
+        self.quant = quant
         out = features * 4
         self.convs = nn.ModuleList([
             nn.Conv2d(cin, features, 1, bias=False),
@@ -78,21 +83,24 @@ class BottleneckBlock(nn.Module):
             self.proj_norm = _norm(norm, out)
 
     def forward(self, x):
-        y = F.relu(normalize(conv(x, self.convs[0]), self.norms[0]))
-        y = F.relu(normalize(conv(y, self.convs[1], self.stride, 1),
+        q = self.quant
+        y = F.relu(normalize(conv(x, self.convs[0], quant=q), self.norms[0]))
+        y = F.relu(normalize(conv(y, self.convs[1], self.stride, 1, quant=q),
                              self.norms[1]))
-        y = normalize(conv(y, self.convs[2]), self.norms[2])
+        y = normalize(conv(y, self.convs[2], quant=q), self.norms[2])
         res = x if self.proj is None else normalize(
-            conv(x, self.proj, self.stride), self.proj_norm)
+            conv(x, self.proj, self.stride, quant=q), self.proj_norm)
         return F.relu(y + res)
 
 
 class ResNetEncoder(nn.Module):
     def __init__(self, arch: str = "resnet50",
-                 dtype: torch.dtype = torch.bfloat16, norm: str = "group"):
+                 dtype: torch.dtype = torch.bfloat16, norm: str = "group",
+                 quant: str = "none"):
         super().__init__()
         kind, stages, stem, mult = ARCHS[arch]
         self.dtype = dtype
+        self.quant = quant
         self.out_features = stem * 8 * mult
         block = BasicBlock if kind == "basic" else BottleneckBlock
         self.stem = nn.Conv2d(3, stem, 7, 2, 3, bias=False)
@@ -102,7 +110,7 @@ class ResNetEncoder(nn.Module):
             features = stem * 2 ** i
             for b in range(n_blocks):
                 blocks.append(block(cin, features, 2 if b == 0 and i > 0
-                                    else 1, norm))
+                                    else 1, norm, quant))
                 cin = features * mult
         self.blocks = nn.ModuleList(blocks)
 
@@ -110,7 +118,8 @@ class ResNetEncoder(nn.Module):
         # Contiguous NCHW, as in the UNet: GroupNorm on a channels-last
         # tensor splits its sums by the batch size on the CPU.
         x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous()
-        x = F.relu(normalize(conv(x, self.stem, 2, 3), self.stem_norm))
+        x = F.relu(normalize(conv(x, self.stem, 2, 3, quant=self.quant),
+                             self.stem_norm))
         x = F.max_pool2d(x, 3, 2, 1)
         for block in self.blocks:
             x = block(x)

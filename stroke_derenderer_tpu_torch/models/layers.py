@@ -9,6 +9,9 @@ rounds the result to the input's dtype. A flax ``BatchNorm`` in inference
 mode (``use_running_average=True``) does the same with its float32 running
 statistics: ``x - mean`` promotes the input to float32, ``rsqrt(var + eps)
 * scale`` and the bias stay float32, and the result is rounded once.
+Under ``quant="int8"`` a convolution contracts in int8
+(``ops.quant.int8_conv2d``) on the weight already cast to the input's
+dtype, as flax promotes its kernel before the injected conv sees it.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from stroke_derenderer_tpu_torch.ops.quant import conv_injection
 
 
 class BatchNorm(nn.Module):
@@ -48,10 +53,15 @@ def make_norm(kind: str, channels: int, group_size: int) -> nn.Module | None:
 
 
 def conv(x, layer: nn.Conv2d | nn.ConvTranspose2d, stride: int = 1,
-         padding: int = 0, transposed: bool = False):
+         padding: int = 0, transposed: bool = False, quant: str = "none"):
     w = layer.weight.to(x.dtype)
-    y = (F.conv_transpose2d(x, w, None, stride) if transposed
-         else F.conv2d(x, w, None, stride, padding))
+    int8 = conv_injection(quant)
+    if transposed:
+        y = F.conv_transpose2d(x, w, None, stride)
+    elif int8 is not None:
+        y = int8(x, w, stride, padding)
+    else:
+        y = F.conv2d(x, w, None, stride, padding)
     if layer.bias is not None:
         y = y + layer.bias.to(x.dtype)[:, None, None]
     return y

@@ -68,14 +68,14 @@ class Binarizer:
         its flax variables (or params) tree given in memory instead, as an
         ONNX import gives it; with neither, random weights
         (``weights.init_binarizer``, seed 0). ``config.norm`` is
-        ``"group"``, ``"batch"`` or ``"none"``. ``fused``: cut and stitch on
-        the device (one program per tile plan), and every width group of
-        ``binarize_images`` through the batched fused program."""
+        ``"group"``, ``"batch"`` or ``"none"``; ``config.quant`` ``"int8"``
+        runs the UNet's int8 conv stacks (``ops.quant``). ``fused``: cut and
+        stitch on the device (one program per tile plan), and every width
+        group of ``binarize_images`` through the batched fused program.
+        Every UNet call sees the tile batch the JAX package gives its
+        program (padded to ``config.batch_bucket`` on the bucketed path), so
+        that int8's per-tensor scale spans the same tiles."""
         self.config = cfg = config
-        if cfg.quant != "none":
-            raise NotImplementedError(
-                f"quant={cfg.quant!r}: only unquantized weights are ported "
-                "(ROADMAP.md)")
         self.device = resolve_device(device)
         if variables is None and weights_path is not None:
             variables = read_msgpack(weights_path)
@@ -84,7 +84,7 @@ class Binarizer:
         else:
             model = AttentionUNet(cfg.features, cfg.bottleneck, cfg.channels,
                                   dtype=dtype_of(cfg.compute_dtype),
-                                  norm=cfg.norm)
+                                  norm=cfg.norm, quant=cfg.quant)
             model.load_state_dict(from_flax_unet(variables,
                                                  len(cfg.features)))
         self.model = model.to(self.device).eval()

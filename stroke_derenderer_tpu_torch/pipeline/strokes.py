@@ -14,9 +14,13 @@ decoded again in up to ``redecode_passes`` residual passes (each pass of
 ``process_images`` one gather, one encoder call and one launch per chunk
 over the residuals of every image still short of the floor), and with
 ``refine_snap`` > 0 the strokes are snapped onto the ink. The JAX package
-pads the glyph batch to ``glyph_bucket`` rows to bound recompiles; rows are
-independent at every stage, so the port runs the real rows only and the
-output is the same.
+pads the glyph batch to ``glyph_bucket`` rows to bound recompiles. Without
+int8, rows are independent at every stage, so the port runs the real rows
+only and the output is the same. Under ``quant="int8"`` the encoder's
+activation scale spans the whole batch, so a row's features depend on the
+rows beside it: the port then pads the encoder's batch with the blank
+crops that the JAX package pads it with, to a multiple of
+``glyph_bucket``, over the same chunks, and decodes the real rows only.
 """
 
 from __future__ import annotations
@@ -134,15 +138,12 @@ class StrokeEstimator:
         (encoder, decoder, projection or None) flax trees given in memory
         instead, as an ONNX import gives them; with neither, random weights
         (``weights.init_strokes``, seed 0). ``config.encoder_norm`` is
-        ``"group"`` or ``"batch"``."""
+        ``"group"`` or ``"batch"``; ``config.quant`` ``"int8"`` runs the
+        encoder's int8 conv stacks (``ops.quant``)."""
         self.config = cfg = config
         if cfg.decode not in ("greedy", "beam"):
             raise ValueError(f"decode must be 'greedy' or 'beam', got "
                              f"{cfg.decode!r}")
-        if cfg.quant != "none":
-            raise NotImplementedError(
-                f"quant={cfg.quant!r}: only unquantized weights are ported "
-                "(ROADMAP.md)")
         self.device = resolve_device(device)
         dtype = dtype_of(cfg.compute_dtype)
         if variables is None and weights_paths is not None:
@@ -159,7 +160,7 @@ class StrokeEstimator:
         else:
             enc_vars, dec_vars, proj_vars = variables
             encoder = ResNetEncoder(cfg.encoder_arch, dtype=dtype,
-                                    norm=cfg.encoder_norm)
+                                    norm=cfg.encoder_norm, quant=cfg.quant)
             decoder = AttentiveDecoder(
                 cfg.vocab_size, cfg.embed_dim, cfg.attention_dim,
                 cfg.decoder_dim, cfg.projection_dim or encoder.out_features,
@@ -193,10 +194,19 @@ class StrokeEstimator:
                            max_length: int | None) -> torch.Tensor:
         """(N, S, S) float32 crops in 0..255 on the device -> (N,
         max_length) int32 tokens there: normalization, encoder, projection
-        head (where there is one), one K1 (greedy) or K2 (beam) call."""
+        head (where there is one), one K1 (greedy) or K2 (beam) call. Under
+        int8 the encoder sees the batch padded with blank crops to a
+        multiple of ``glyph_bucket`` (the JAX package's batch); only the N
+        real rows are decoded."""
         cfg = self.config
+        n = crops.shape[0]
+        if cfg.quant != "none" and n % cfg.glyph_bucket:
+            pad = cfg.glyph_bucket - n % cfg.glyph_bucket
+            crops = torch.cat([crops, crops.new_zeros((pad,)
+                                                      + crops.shape[1:])])
         images = self._normalize_raw(crops)
-        seq = encode_postprocess(self.encoder(images), cfg.encode_image_size)
+        seq = encode_postprocess(self.encoder(images),
+                                 cfg.encode_image_size)[:n]
         if self.projection is not None:
             seq = linear(seq.to(self.compute_dtype), self.projection)
         seq = seq.to(self.compute_dtype)

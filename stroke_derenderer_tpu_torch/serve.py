@@ -288,7 +288,9 @@ def parse_args(argv=None):
     ap.add_argument("--device-partition", action="store_true",
                     help="Crops built on the device (the port's only mode).")
     ap.add_argument("--quant", choices=["none", "int8"], default=None,
-                    help="int8 is not ported and raises.")
+                    help="int8: dynamic int8 UNet and encoder conv stacks "
+                         "(ops/quant.py). Under int8 a request's result "
+                         "depends on the requests batched beside it.")
     return ap.parse_args(argv)
 
 

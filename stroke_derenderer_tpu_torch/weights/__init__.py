@@ -533,7 +533,7 @@ def init_binarizer(config, seed: int = 0):
     from stroke_derenderer_tpu_torch.models.unet import AttentionUNet
     model = AttentionUNet(config.features, config.bottleneck, config.channels,
                           dtype=dtype_of(config.compute_dtype),
-                          norm=config.norm)
+                          norm=config.norm, quant=config.quant)
     n = len(config.features)
     tree = _init_tree(_merged(unet_variables(model.state_dict(), n)),
                       torch.Generator().manual_seed(seed))
@@ -555,7 +555,7 @@ def init_strokes(config, seed: int = 0):
     dtype = dtype_of(config.compute_dtype)
     kind = ARCHS[config.encoder_arch][0]
     encoder = ResNetEncoder(config.encoder_arch, dtype=dtype,
-                            norm=config.encoder_norm)
+                            norm=config.encoder_norm, quant=config.quant)
     decoder = AttentiveDecoder(config.vocab_size, config.embed_dim,
                                config.attention_dim, config.decoder_dim,
                                config.projection_dim or encoder.out_features,

@@ -275,9 +275,12 @@ def test_select_beam_penalty_and_ties():
 
 def test_config_fields_and_unsupported_options(tmp_path):
     materialize_model_dir(tmp_path, TINY_BIN, TINY_SE)
-    with pytest.raises(NotImplementedError, match="quant"):
-        cli.initialize_sessions(tmp_path, device="cpu",
-                                se_overrides={"quant": "int8"})
+    # int8 is ported: the estimator builds its int8 encoder (its numbers:
+    # tests/test_torch_quant.py).
+    _, est = cli.initialize_sessions(tmp_path, device="cpu",
+                                     se_overrides={"quant": "int8",
+                                                   "decode": "beam"})
+    assert est.encoder.quant == "int8" and est.config.decode == "beam"
     ours, theirs = TStrokesConfig(), StrokesConfig()
     assert (ours.decode, ours.beam_size, ours.length_penalty) == (
         theirs.decode, theirs.beam_size, theirs.length_penalty)

@@ -87,6 +87,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 for name in ("kernels.fused_beam", "kernels.decode_attention", "serve",
+             "ops.quant", "parallel", "parallel.two_stage",
              "eval.run", "eval.metrics", "data.real", "data.synthetic",
              "data.letters", "data.cache", "data.loader", "train.loop",
              "train.steps", "train.losses", "train.checkpoint"):
@@ -104,6 +105,9 @@ assert entrypoint(["-models", models, "-input", inp, "--output", out + "_b",
                    "--device", "cpu", "--batch", "--svg"]) == 0
 assert entrypoint(["-models", models, "-input", inp, "--output", out + "_r",
                    "--device", "cpu", "--preset", "real", "--refine", "3"]) == 0
+assert entrypoint(["-models", models, "-input", inp, "--output", out + "_q",
+                   "--device", "cpu", "--quant", "int8", "--two-stage",
+                   "2"]) == 0
 from stroke_derenderer_tpu_torch.eval.run import main as eval_main
 assert eval_main(["--models", models, "--n", "1", "--style", "letters",
                   "--redecode", "0.9", "--device", "cpu"]) == 0
@@ -127,9 +131,10 @@ print("GUARD OK", len(names))
 
 
 def test_import_guard(tmp_path):
-    """Every port module (the server's, the evaluator's and the trainer's
-    too) and chip_smoke.py import, and the CLI (greedy, --decode beam,
-    --batch, --preset real, --init-models, --export-onnx and -models on the
+    """Every port module (the server's, the evaluator's, the trainer's,
+    ``ops.quant`` and ``parallel`` too) and chip_smoke.py import, and the
+    CLI (greedy, --decode beam, --batch, --preset real, --quant int8 with
+    --two-stage 2, --init-models, --export-onnx and -models on the
     exported ONNX dir), the evaluator's main, the trainer's main (both
     models, 2 steps) and the fused-attention greedy entry run a tiny model
     on the CPU, with the JAX stack, PIL, msgpack and onnx unimportable."""
@@ -155,6 +160,8 @@ def test_import_guard(tmp_path):
     assert (tmp_path / "out" / "tiny_STROKES.json").exists()
     assert (tmp_path / "out_b" / "tiny_STROKES.svg").exists()
     assert (tmp_path / "out_r" / "tiny_STROKES.json").exists()
+    assert (tmp_path / "out_q" / "tiny_STROKES.json").exists()
+    assert "e2e (two-stage amortized)" in proc.stdout
     assert '"stroke_dtw"' in proc.stdout
     for f in ("binarizer.msgpack", "strokes_decoder.msgpack",
               "ckpt_captioner/step_00000002/opt_state.msgpack"):
@@ -163,3 +170,58 @@ def test_import_guard(tmp_path):
     assert (tmp_path / "out_x" / "decoder_iter.onnx").exists()
     assert (tmp_path / "out_o" / "tiny_STROKES.json").exists()
     assert "[info] importing reference ONNX models" in proc.stdout
+
+
+def _tiny_dir(tmp_path):
+    from stroke_derenderer_tpu.config import BinarizerConfig, StrokesConfig
+    from stroke_derenderer_tpu.weights.store import materialize_model_dir
+    models, inp = tmp_path / "models", tmp_path / "in"
+    materialize_model_dir(
+        models, BinarizerConfig(features=(8, 16), bottleneck=16,
+                                compute_dtype="float32"),
+        StrokesConfig(encoder_arch="tiny", embed_dim=16, attention_dim=16,
+                      decoder_dim=16, max_length=12,
+                      compute_dtype="float32"))
+    inp.mkdir()
+    for k in range(3):
+        img = np.full((40, 150 + 30 * k, 3), 255, np.uint8)
+        img[12:28, 20 + 5 * k:60] = 0
+        img[15:20, 90:140] = 0
+        write_png(inp / f"line{k}.png", img)
+    return models, inp
+
+
+def _outputs(d):
+    return {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+
+
+def test_quant_and_two_stage_flags(tmp_path, capsys):
+    """--two-stage 2 writes the per-image run's files (float32, rows
+    independent); --quant int8 runs the int8 conv stacks, with and without
+    --two-stage; --two-stage --no-strokes falls back to the batched
+    binarize."""
+    from stroke_derenderer_tpu_torch.ops import quant
+    models, inp = _tiny_dir(tmp_path)
+    base = ["-models", str(models), "-input", str(inp), "--device", "cpu"]
+    assert cli.entrypoint(base + ["--output", str(tmp_path / "seq")]) == 0
+    assert cli.entrypoint(base + ["--output", str(tmp_path / "two"),
+                                  "--two-stage", "2"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("e2e (two-stage amortized)") == 3
+    assert _outputs(tmp_path / "two") == _outputs(tmp_path / "seq")
+    assert len(_outputs(tmp_path / "seq")) == 6
+    calls = quant.call_count
+    assert cli.entrypoint(base + ["--output", str(tmp_path / "q"),
+                                  "--quant", "int8"]) == 0
+    assert quant.call_count > calls
+    assert cli.entrypoint(base + ["--output", str(tmp_path / "q2"),
+                                  "--quant", "int8", "--two-stage"]) == 0
+    assert set(_outputs(tmp_path / "q2")) == set(_outputs(tmp_path / "seq"))
+    assert cli.entrypoint(base + ["--output", str(tmp_path / "nos"),
+                                  "--two-stage", "--no-strokes"]) == 0
+    assert sorted(_outputs(tmp_path / "nos")) == [
+        f"line{k}_BINARIZED.png" for k in range(3)]
+    assert "[error]" not in capsys.readouterr().out
+    assert cli.parse_args(["--two-stage"]).two_stage == 8
+    defaults = cli.parse_args([])
+    assert defaults.two_stage == 0 and defaults.quant is None

@@ -231,9 +231,10 @@ def test_main_prints_one_json_line(models, tmp_path, capsys):
                       "--binarizer-only", "--device", "cpu"]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out.keys() == {"n", "binarization_f1"}
-    with pytest.raises(NotImplementedError):
-        trun.main(["--models", str(models), "--n", "1", "--quant", "int8",
-                   "--device", "cpu"])
+    assert trun.main(["--models", str(models), "--n", "1", "--quant",
+                      "int8", "--binarizer-only", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out.keys() == {"n", "binarization_f1"}
 
 
 def test_main_needs_a_card_unless_cpu_is_asked(models, monkeypatch):

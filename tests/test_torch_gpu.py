@@ -583,3 +583,68 @@ def test_cli_on_an_onnx_dir_on_card(tmp_path):
     got = read_png(tmp_path / "out" / "golden_input_BINARIZED.png")
     want = read_png(REPO / "tests" / "golden" / "expected_BINARIZED.png")
     assert (got == want).mean() >= 0.999
+
+
+# (batch, in, height, width, out, kernel, stride, pad): the UNet's 3x3 and
+# 1x1 gate convolutions, the encoder's stem, stride-2 3x3 and 1x1 proj.
+INT8_SHAPES = [(4, 16, 64, 96, 32, 3, 1, 1), (4, 128, 16, 24, 128, 3, 1, 1),
+               (4, 16, 64, 96, 8, 1, 1, 0), (8, 3, 224, 224, 64, 7, 2, 3),
+               (8, 64, 56, 56, 128, 3, 2, 1), (8, 64, 56, 56, 128, 1, 2, 0),
+               (1, 8, 3, 4, 8, 1, 1, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_conv_on_card_equals_cpu(dtype):
+    """``int8_conv2d`` on the card (im2col, ``torch._int_mm`` in cuBLASLt)
+    against the same function on the CPU: the int32 sums equal and the
+    outputs bit for bit the same."""
+    dev = _card()
+    from stroke_derenderer_tpu_torch.ops import quant
+    rng = np.random.default_rng(0)
+    for b, cin, h, w, cout, k, s, p in INT8_SHAPES:
+        x = torch.from_numpy(rng.normal(size=(b, cin, h, w)).astype(
+            np.float32)).to(dtype)
+        wt = torch.from_numpy((rng.normal(size=(cout, cin, k, k)) * 0.1)
+                              .astype(np.float32)).to(dtype)
+        xq, _ = quant._quantize(x)
+        wq, _ = quant._quantize(wt, (1, 2, 3))
+        assert torch.equal(quant.conv2d_int32(xq.to(dev), wq.to(dev), s,
+                                              p).cpu(),
+                           quant.conv2d_int32(xq, wq, s, p))
+        got = quant.int8_conv2d(x.to(dev), wt.to(dev), s, p)
+        assert got.is_cuda and got.dtype == dtype
+        assert torch.equal(got.cpu(), quant.int8_conv2d(x, wt, s, p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_two_stage_on_card_matches_sequential_chunks(quant):
+    """``TwoStagePipeline.process_batched`` on the card (each stage on its
+    own stream) against ``binarize_images`` + ``process_images`` over the
+    same chunks: the same masks and strokes, one K1 launch per chunk."""
+    dev = _card()
+    from stroke_derenderer_tpu_torch import cli
+    from stroke_derenderer_tpu_torch.parallel import TwoStagePipeline
+    ov = {"quant": quant}
+    binarizer, estimator = cli.initialize_sessions(
+        REPO / "models_demo", device=dev, se_overrides=ov, bin_overrides=ov)
+    paths = sorted(p for p in (REPO / "data_pseudo_real").glob("*.png")
+                   if not p.stem.endswith("_BINARIZED"))[:7]
+    imgs = [img for img, _ in cli.load_images(paths)]
+    seq_masks, seq_strokes = [], []
+    for c in range(0, len(imgs), 3):
+        masks = [b[:, :, 0] > 127
+                 for b in binarizer.binarize_images(imgs[c:c + 3])]
+        seq_masks += masks
+        seq_strokes += estimator.process_images(masks)
+    before = fd.launch_count
+    masks, strokes = TwoStagePipeline(binarizer, estimator).process_batched(
+        imgs, chunk_size=3)
+    assert fd.launch_count - before == 3
+    for a, b in zip(seq_masks, masks):
+        assert np.array_equal(a, b)
+    for a, b in zip(seq_strokes, strokes):
+        assert len(a) == len(b)
+        for (ax, ay), (bx, by) in zip(a, b):
+            assert np.array_equal(ax, bx) and np.array_equal(ay, by)

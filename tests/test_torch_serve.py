@@ -290,9 +290,6 @@ def test_main_needs_a_card_unless_cpu_is_asked(models, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--models", str(models), "--port", "0"])
-    with pytest.raises(NotImplementedError):
-        serve.main(["--models", str(models), "--port", "0", "--device",
-                    "cpu", "--quant", "int8"])
     started = []
 
     class OneShot(ThreadingHTTPServer):
@@ -316,3 +313,10 @@ def test_main_needs_a_card_unless_cpu_is_asked(models, monkeypatch):
     assert workers[0].binarizer.device.type == "cpu"
     workers[0].join(10)
     assert not workers[0].is_alive()  # main closed it on the way out
+    # --quant int8 (once refused) reaches both pipelines.
+    serve.main(["--models", str(models), "--port", "0", "--device", "cpu",
+                "--quant", "int8"])
+    assert workers[1].binarizer.config.quant == "int8"
+    assert workers[1].estimator.encoder.quant == "int8"
+    workers[1].join(10)
+    assert not workers[1].is_alive()

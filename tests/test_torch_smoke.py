@@ -1,4 +1,4 @@
-"""``chip_smoke.py`` rehearsed on the CPU, all fifteen phases: the card is
+"""``chip_smoke.py`` rehearsed on the CPU, all seventeen phases: the card is
 faked (availability, name, events, ``nvidia-smi``), the device is the CPU,
 the server listens on 127.0.0.1, and the wrappers of
 K1, K2 and K3 run their plain versions (K3's with bfloat16 streams, as on
@@ -12,7 +12,9 @@ recipe, resume, cache and from-scratch runs on a tiny model dir for a few
 steps at batch 2, with one loader worker. The onnx phase exports and runs
 ``models_demo`` as on the card, and its random upstream-shaped model is
 shrunk to tiny widths (a one-level UNet, the tiny encoder, a 64 -> 12
-projection)."""
+projection). The int8 and two_stage phases drive the CLI on the first 9
+inputs (two chunks of 8), check the int8 convs at three small shapes and
+hold the int8 eval to the bf16 reference's greedy runs, bars open."""
 
 import json
 import sys
@@ -144,6 +146,16 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
         run["result"]["stroke_dtw_ci95"] = float("inf")
     (tmp_path / "jax.json").write_text(json.dumps(reference))
     monkeypatch.setattr(chip_smoke, "JAX_EVAL", tmp_path / "jax.json")
+    # The int8 eval's reference: the bf16 file's greedy runs, bars open.
+    (tmp_path / "jax_int8.json").write_text(json.dumps({"runs": {
+        k: reference["runs"][k] for k in ("real_greedy", "mixed_greedy")}}))
+    monkeypatch.setattr(chip_smoke, "JAX_EVAL_INT8",
+                        tmp_path / "jax_int8.json")
+    monkeypatch.setattr(chip_smoke, "SLICE_INPUTS", 9)
+    monkeypatch.setattr(chip_smoke, "INT8_CONVS", (
+        ("unet 3x3", 2, 16, 16, 24, 16, 3, 1, 1, False),
+        ("gate 1x1", 2, 16, 16, 24, 8, 1, 1, 0, True),
+        ("stem 7x7 s2 p3", 2, 3, 32, 32, 64, 7, 2, 3, False)))
     monkeypatch.setattr(chip_smoke, "EVAL_F1_TOL", float("inf"))
     monkeypatch.setattr(chip_smoke, "EVAL_COVERAGE_TOL", float("inf"))
     from stroke_derenderer_tpu_torch import weights as tw
@@ -191,11 +203,39 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
     assert 2 <= by_path["K1"].pop("batch-real") <= 1 + passes
     assert 0 < by_path["K1"].pop("eval")
     assert by_path["K1"].pop("train") == 1
+    assert 0 < by_path["K1"].pop("int8-eval")
     assert by_path["K1"] == {"main": 45, "batch": 1, "serve": served,
-                             "refine": 45, "onnx": 45, "onnx-variant": 1}
+                             "refine": 45, "onnx": 45, "onnx-variant": 1,
+                             "int8": 9, "int8-batch": 1, "two-stage": 2,
+                             "two-stage-int8": 2, "two-stage-per-image": 9}
     assert by_path["K2"].pop("real-beam") >= 2
     assert by_path["K2"] == {"main-beam": 45, "batch-beam": 1,
-                             "onnx-beam": 1}
+                             "onnx-beam": 1, "int8-beam": 1}
+    # int8: every conv card == CPU (both the CPU here), the demo bars, the
+    # CLI's int8 runs, the eval runs; two-stage: outputs as the sequential
+    # chunks', per image as phase 4's, each stage's seconds and the overlap.
+    int8 = record["int8"]
+    assert len(int8["convs"]) == 6 and all(
+        c["int32_equal"] and c["bit_equal"] and c["cudnn_ms"] > 0
+        for c in int8["convs"])
+    assert int8["demo"]["mask_agree"] >= chip_smoke.INT8_AGREE
+    assert int8["demo"]["encoder_cosine"] > chip_smoke.INT8_COSINE
+    assert int8["conv_calls"] > 0
+    assert int8["cli"]["against_bf16"]["agree"] >= chip_smoke.INT8_AGREE
+    assert set(int8["eval"]) == {"real_greedy", "mixed_greedy", "launches"}
+    assert all(int8["eval"][k]["within"] == ["default"]
+               for k in ("real_greedy", "mixed_greedy"))
+    two = record["two_stage"]
+    for quant in ("none", "int8"):
+        r = two[quant]
+        assert r["against_sequential_chunks"]["differing_px"] == 0
+        assert r["against_sequential_chunks"]["strokes_identical"] == 9
+        assert r["sequential_launches"]["K1"] == 2
+        assert r["stage_s"]["a"] > 0 and r["stage_s"]["b"] > 0
+        assert r["stage_s"]["wall"] > 0 and "overlap" in r
+        assert set(r["s_per_image"]) == {"two_stage", "sequential_chunks",
+                                         "batch"}
+    assert two["per_image"]["against_per_image"]["strokes_identical"] == 9
     # onnx: models_demo through ONNX and back gives phase 4's outputs; the
     # variant's K1 and K2 comparisons at its projected and unprojected
     # widths.
@@ -241,7 +281,8 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
         reference["runs"])
     assert record["eval"]["real_greedy"]["result"]["n"] == 2
     assert record["eval"]["mixed_greedy"]["result"]["n"] == 2
-    assert all(not record["eval"][k]["misses"] for k in reference["runs"])
+    assert all(record["eval"][k]["within"] == ["default"]
+               for k in reference["runs"])
     assert 0 < kernels[2]["launches"] <= chip_smoke.MAX_LENGTH
     # train: the reference steps within the bars, the resume, every run's
     # rates, the from-scratch losses falling, the export served.

@@ -235,13 +235,31 @@ def test_variant_dir_bfloat16_token_agreement(tmp_path):
 
 
 def test_quant_still_refused(tmp_path):
+    """int8 was refused until it was ported; now the variants run it too
+    (batch-norm UNet and encoder, projection head): the int8 convs are
+    called, the float32 masks are the JAX package's, and the encoder sees
+    its glyph batch padded to glyph_bucket, as JAX pads it."""
+    from stroke_derenderer_tpu_torch.ops import quant
     d = variant_dir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.initialize_sessions(d, device="cpu",
-                                bin_overrides={"quant": "int8"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.initialize_sessions(d, device="cpu",
-                                se_overrides={"quant": "int8"})
+    ov = {"quant": "int8"}
+    jb, _ = j_cli.initialize_sessions(d, se_overrides=ov, bin_overrides=ov)
+    tb, te = cli.initialize_sessions(d, device="cpu", se_overrides=ov,
+                                     bin_overrides=ov)
+    assert te.encoder.quant == "int8"
+    img = np.full((64, 300, 3), 255, np.uint8)
+    img[20:30, 40:200] = 0
+    img[40:44, 60:280] = 30
+    want = jb.binarize_image(img)
+    calls = quant.call_count
+    got = tb.binarize_image(img)
+    assert quant.call_count > calls
+    assert float((got == want).mean()) >= 0.99
+    seen = []
+    orig = te.encoder.forward
+    te.encoder.forward = lambda x: seen.append(x.shape[0]) or orig(x)
+    m = _masks()[0]
+    assert te.process_image(m) is not None
+    assert seen and all(n % te.config.glyph_bucket == 0 for n in seen)
 
 
 def test_projection_file_missing_is_an_error(tmp_path):
