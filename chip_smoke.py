@@ -168,6 +168,32 @@ non-zero and prints no result:
    ``process_batched``, the overlap (A + B - wall) / min(A, B), and s/image
    against the sequential chunks and against phase 9's ``--batch``. Then
    ``TwoStagePipeline.process`` (image by image): phase 4's files.
+18. mesh: the port's ``parallel/`` in ``MESH_DEVICES`` ranks, one process
+   each (``multihost.spawn``; two ranks share the card over gloo, as NCCL
+   refuses two ranks on one device), on the 45 inputs at ``models_demo``'s
+   widths: over a (2, 1) mesh greedy bf16, greedy float32, beam
+   (``BEAM``), int8, and ``--two-stage`` (``TWO_STAGE_CHUNK``); the
+   binarizer over a (1, 2) mesh (each rank 192 of a tile's 384 columns).
+   Bars: K1 (K2 for beam) launched once per rank per batch, and once per
+   chunk on stage B's rank; float32 tokens and masks those of one rank's
+   run; the bf16 and tp masks against phase 9's ``--batch`` masks and the
+   int8 masks against one rank's int8 run over the same padded batch, each
+   on at least ``BATCH_MASK_AGREE`` of the pixels; the golden strokes
+   within ``STROKES_CHAMFER_PX``; the two-stage outputs those of the same
+   chunks run in turn (each stage a sub-mesh of one rank). With two cards
+   or more, greedy bf16 again over ``cuda:0`` and ``cuda:1`` with NCCL.
+   Then the trainer in the same ranks: ``MESH_TRAIN_STEPS`` float32 steps
+   of each model at ``models_demo``'s widths over the (2, 1) mesh and over
+   a (1, 2) mesh (``--tp 2``: the conv kernels and ``enc_att``
+   column-parallel) against one rank's run over the same global batches
+   (losses within
+   ``MESH_TRAIN_LOSS_TOL``, parameters within 2 x ``MESH_TRAIN_LR``), and
+   rank 0's checkpoints resumed by one device; and ``train.loop`` with
+   ``--mesh 2`` and with ``--distributed`` in the same ranks (the same
+   losses on both). Last, the CLI's ``--mesh
+   2`` on the golden image (with one card: the JAX CLI's warning and one
+   device). img/s at dp = 2 against dp = 1 is printed with the card's
+   name and power limit; on one card it is no scaling figure.
 
 K1 and K2 are one cooperative launch each per decode call; phases 3 and 5
 record each launch's grid, its grid barriers per step and the time of one
@@ -183,6 +209,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import io
 import json
 import re
@@ -275,6 +302,26 @@ TWO_STAGE_CHUNK = 8
 # Phases 16 and 17 drive the CLI on the first this many inputs (all 45:
 # None).
 SLICE_INPUTS = None
+
+# Phase 18 (mesh): two ranks, one process each, sharing the card over gloo
+# (NCCL refuses two ranks on one device); with two cards or more, also a
+# run over two cards with NCCL.
+MESH_DEVICES = ("cuda:0", "cuda:0")
+# (module, function) that each rank calls first (None: nothing).
+MESH_RANK_SETUP = None
+# The mesh phase drives the first this many inputs (all 45: None).
+MESH_INPUTS = None
+MESH_TIMEOUT_S = 600.0
+# Its trainer: models_demo's widths in float32, two steps at batch 4.
+MESH_TRAIN_BIN = {"features": (16, 32, 64), "bottleneck": 128,
+                  "compute_dtype": "float32"}
+MESH_TRAIN_SE = {"encoder_arch": "resnet18", "compute_dtype": "float32"}
+MESH_TRAIN_STEPS = 2
+MESH_TRAIN_BATCH = 4
+MESH_TRAIN_SEQ = 96
+MESH_TRAIN_LR = 3e-4
+MESH_TRAIN_LOSS_TOL = 1e-5   # float32 loss against the single rank's
+F32 = {"compute_dtype": "float32"}
 
 # H100 SXM published peaks (NVIDIA data sheet), used for bound_ms.
 HBM_BYTES_PER_S = 3.35e12
@@ -1824,6 +1871,406 @@ def two_stage_phase(cli, read_png, imgs, main_out, counters, runs: dict,
     return rec
 
 
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _mesh_run(cli, mesh, imgs, bin_ov=None, se_ov=None, masks=None,
+              strokes: bool = True) -> dict:
+    """One run of ``binarize_images`` (unless ``masks`` are given) and
+    ``process_images`` over ``mesh`` (None: one device), with K1's and
+    K2's ``launch_count`` set to 0 just before and read just after, each
+    stage's host seconds (each ends in a download) and the tokens every
+    ``process_tokens`` call saw."""
+    import numpy as np
+
+    from stroke_derenderer_tpu_torch.kernels import fused_beam as fb
+    from stroke_derenderer_tpu_torch.kernels import fused_decode as fd
+    b, e = cli.initialize_sessions(
+        MODELS, device="cuda" if mesh is None else None, mesh=mesh,
+        bin_overrides=bin_ov, se_overrides={"max_length": MAX_LENGTH}
+        | (se_ov or {}))
+    tokens = []
+    real = e.process_tokens
+    e.process_tokens = lambda t, p: (
+        tokens.append(np.asarray(t)[:len(p)].copy()), real(t, p))[1]
+    rec = {}
+    fd.launch_count = fb.launch_count = 0
+    t0 = time.perf_counter()
+    if masks is None:
+        masks = [x[:, :, 0] > 127 for x in b.binarize_images(imgs)]
+        _sync(b.device)
+        rec["binarize_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    rec["strokes"] = e.process_images(masks) if strokes else None
+    _sync(e.device)
+    rec["strokes_s"] = time.perf_counter() - t1
+    rec["launches"] = {"K1": fd.launch_count, "K2": fb.launch_count}
+    rec["masks"], rec["tokens"] = masks, tokens
+    return rec
+
+
+def _mesh_train(dev, out_dir, mesh=None,
+                steps: int = MESH_TRAIN_STEPS) -> dict:
+    """``steps`` steps of train_binarizer and train_captioner into
+    ``out_dir`` over ``mesh`` (None: one device), one loader worker so
+    that the global batches are the same -> {model: (start step,
+    losses)}."""
+    from stroke_derenderer_tpu_torch.config import (
+        BinarizerConfig, StrokesConfig,
+    )
+    from stroke_derenderer_tpu_torch.train import loop
+    kw = dict(steps=steps, batch_size=MESH_TRAIN_BATCH, out_dir=out_dir,
+              lr=MESH_TRAIN_LR, seed=0, mesh=mesh, device=dev,
+              num_workers=1, ckpt_every=MESH_TRAIN_STEPS)
+    res = {"binarizer": loop.train_binarizer(
+               BinarizerConfig(**MESH_TRAIN_BIN), **kw),
+           "captioner": loop.train_captioner(
+               StrokesConfig(**MESH_TRAIN_SE), seq_len=MESH_TRAIN_SEQ,
+               **kw)}
+    return {k: (r.start_step, r.losses) for k, r in res.items()}
+
+
+# The settings a rank of phase 18 takes from the script that spawned it.
+MESH_SETTINGS = ("MAX_LENGTH", "BEAM", "TWO_STAGE_CHUNK", "MODELS",
+                 "MESH_TRAIN_BIN", "MESH_TRAIN_SE", "MESH_TRAIN_STEPS",
+                 "MESH_TRAIN_BATCH", "MESH_TRAIN_SEQ", "MESH_TRAIN_LR")
+
+
+def _train_argv(out_dir) -> list:
+    """``train.loop``'s flags for MESH_TRAIN_STEPS steps of both models at
+    MESH_TRAIN_BIN's and MESH_TRAIN_SE's widths, in the compute dtype of
+    the shipped configs, on this rank's card or the CPU."""
+    from stroke_derenderer_tpu_torch.parallel import multihost
+    argv = ["--model", "both", "--steps", str(MESH_TRAIN_STEPS), "--batch",
+            str(MESH_TRAIN_BATCH), "--seq-len", str(MESH_TRAIN_SEQ),
+            "--bin-features", ",".join(map(str, MESH_TRAIN_BIN["features"])),
+            "--encoder-arch", MESH_TRAIN_SE["encoder_arch"], "--device",
+            multihost.device().type, "--out", str(out_dir)]
+    if "embed_dim" in MESH_TRAIN_SE:
+        argv += ["--se-dims", ",".join(str(MESH_TRAIN_SE[k]) for k in (
+            "embed_dim", "attention_dim", "decoder_dim"))]
+    return argv
+
+
+def mesh_rank(paths, setup, train_dir, full: bool, settings: dict) -> dict:
+    """One rank of phase 18 (run by ``multihost.spawn``): the runs over a
+    (2, 1) mesh (greedy bf16 and float32, beam, int8, two-stage), the
+    binarizer over a (1, 2) mesh and, with ``full``, the trainer. Rank 0
+    returns the outputs; every rank its launches and seconds.
+    ``settings``: the spawning script's values of ``MESH_SETTINGS``;
+    ``setup``: (module, function) to call first, or None."""
+    import importlib
+
+    import torch.distributed as dist
+
+    globals().update(settings)
+    if setup:
+        getattr(importlib.import_module(setup[0]), setup[1])()
+    from stroke_derenderer_tpu_torch import cli
+    from stroke_derenderer_tpu_torch.kernels import fused_decode as fd
+    from stroke_derenderer_tpu_torch.parallel import TwoStagePipeline
+    from stroke_derenderer_tpu_torch.parallel.mesh import make_mesh
+    imgs = [img for img, _ in cli.load_images(paths)]
+    dp2, tp2 = make_mesh(2), make_mesh(2, dp=1, tp=2)
+    out = {"rank": dp2.rank, "device": str(dp2.device),
+           "backend": dist.get_backend(), "runs": {}}
+    runs = out["runs"]
+    # On a card a first run loads the rank's kernels and cuDNN's; the
+    # second is kept.
+    if dp2.device.type == "cuda":
+        _mesh_run(cli, dp2, imgs)
+    runs["greedy"] = _mesh_run(cli, dp2, imgs)
+    if full:
+        runs["greedy_f32"] = _mesh_run(cli, dp2, imgs, F32, F32)
+        runs["beam"] = _mesh_run(cli, dp2, imgs, se_ov={
+            "decode": "beam", "beam_size": BEAM},
+            masks=runs["greedy"]["masks"])
+        runs["tp"] = _mesh_run(cli, tp2, imgs, strokes=False)
+        runs["int8"] = _mesh_run(cli, dp2, imgs, {"quant": "int8"},
+                                 {"quant": "int8"})
+        b, e = cli.initialize_sessions(MODELS, mesh=dp2, se_overrides={
+            "max_length": MAX_LENGTH})
+        pipe = TwoStagePipeline(b, e)
+        fd.launch_count = 0
+        t0 = time.perf_counter()
+        masks, strokes = pipe.process_batched(imgs,
+                                              chunk_size=TWO_STAGE_CHUNK)
+        runs["two_stage"] = {"masks": masks, "strokes": strokes,
+                             "wall_s": time.perf_counter() - t0,
+                             "launches": {"K1": fd.launch_count, "K2": 0},
+                             "stage": "a" if pipe._in_a else "b"}
+        out["train"] = _mesh_train(None, train_dir, make_mesh(2))
+        out["train_tp"] = _mesh_train(None, train_dir + "_tp",
+                                      make_mesh(2, dp=1, tp=2))
+        # The trainer's flags in this group: --mesh 2 (the ranks spawned
+        # here stand for the ones the flag spawns) and --distributed; the
+        # losses and a digest of each model the run exported.
+        from stroke_derenderer_tpu_torch.train import loop
+        out["train_flags"] = {}
+        for flag in ("--mesh", "--distributed"):
+            res = loop.train(_train_argv(train_dir + "_" + flag.strip("-"))
+                             + [flag] + (["2"] if flag == "--mesh" else []),
+                             1)
+            out["train_flags"][flag] = {
+                k: {"losses": r.losses, "params": _digest(r.exported)}
+                for k, r in res.items()}
+    if dp2.rank != 0:  # the outputs are rank 0's; every rank has them
+        for rec in runs.values():
+            for key in ("masks", "strokes", "tokens"):
+                rec.pop(key, None)
+    return out
+
+
+def _digest(tensors: dict) -> str:
+    """sha256 of a dict of tensors, in name order."""
+    h = hashlib.sha256()
+    for n in sorted(tensors):
+        h.update(n.encode())
+        h.update(tensors[n].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _all_reduce_one() -> float:
+    """A rank's all-reduce of a one on its card (phase 18's NCCL probe)."""
+    import torch
+    import torch.distributed as dist
+    t = torch.ones(1, device="cuda")
+    dist.all_reduce(t)
+    return float(t)
+
+
+def _golden_chamfer(imgs, names, masks, strokes) -> float:
+    from stroke_derenderer_tpu_torch.ops.strokes import strokes_to_json
+    i = names.index("golden_input")
+    got = strokes_to_json(strokes[i], scale=imgs[i].shape[0]
+                          / masks[i].shape[0])
+    return chamfer(got, json.loads(
+        (GOLDEN / "expected_STROKES.json").read_text()))
+
+
+def _same_strokes(a, b) -> bool:
+    import numpy as np
+    return len(a) == len(b) and all(
+        np.array_equal(xa, xb) and np.array_equal(ya, yb)
+        for (xa, ya), (xb, yb) in zip(a, b))
+
+
+def mesh_phase(cli, paths, imgs, batch_out, q_binarizer, binarizer,
+               estimator, dev) -> dict:
+    """Phase 18: the port's mesh (``parallel/``; see the module
+    docstring). ``paths`` are the files of ``imgs``."""
+    import numpy as np
+    import torch
+
+    from stroke_derenderer_tpu_torch.parallel import multihost
+    from stroke_derenderer_tpu_torch.weights import read_msgpack
+    if str(ROOT) not in sys.path:  # the ranks import this script
+        sys.path.insert(0, str(ROOT))
+    imgs, paths = imgs[:MESH_INPUTS], [str(p) for p in paths[:MESH_INPUTS]]
+    names = [n for _, n in imgs]
+    raw = [img for img, _ in imgs]
+    work = Path(tempfile.mkdtemp(prefix="mesh_", dir=tempfile.gettempdir()))
+    rec = {"devices": list(MESH_DEVICES), "images": len(imgs)}
+    # Why two ranks share a card over gloo: NCCL's answer to two ranks on
+    # one device.
+    if MESH_DEVICES[0].startswith("cuda"):
+        try:
+            multihost.spawn(_all_reduce_one, 2, ["cuda:0", "cuda:0"],
+                            backend="nccl", timeout_s=120.0, threads=None)
+            rec["nccl_two_ranks_one_card"] = "accepted"
+        except (RuntimeError, TimeoutError) as exc:
+            lines = [x for x in str(exc).splitlines() if x.strip()]
+            rec["nccl_two_ranks_one_card"] = lines[-1][:300]
+        print(json.dumps({"nccl_two_ranks_one_card": rec[
+            "nccl_two_ranks_one_card"]}), flush=True)
+    # The single-rank references on this card, each beside its mesh run
+    # (the greedy one timed on a second run, as the ranks' are).
+    if dev.type == "cuda":
+        _mesh_run(cli, None, raw)
+    single = {"greedy": _mesh_run(cli, None, raw),
+              "greedy_f32": _mesh_run(cli, None, raw, F32, F32)}
+    t0 = time.monotonic()
+    settings = {k: globals()[k] for k in MESH_SETTINGS}
+    # CPU ranks (a rehearsal) take two threads each; a card's keep torch's.
+    threads = None if MESH_DEVICES[0].startswith("cuda") else 2
+    ranks = multihost.spawn(mesh_rank, 2, list(MESH_DEVICES), args=(
+        paths, MESH_RANK_SETUP, str(work / "train_mesh"), True, settings),
+        timeout_s=MESH_TIMEOUT_S, threads=threads)
+    rec["spawn_s"] = time.monotonic() - t0
+    # The group's backend, as multihost.initialize chose it from every
+    # rank's host and device.
+    rec["backend"] = sorted({r["backend"] for r in ranks})
+    if rec["backend"] != [multihost.backend_for(MESH_DEVICES)]:
+        raise SystemExit(f"mesh: the ranks' backend {rec['backend']} on "
+                         f"{MESH_DEVICES}")
+    rec["backend"] = rec["backend"][0]
+    got = ranks[0]["runs"]
+    by_name = lambda masks: dict(zip(names, masks))
+    batched = {n: batch_out[n][0] for n in names}
+    # Launches: one K1 (K2 for beam) per rank per batch; the two-stage run
+    # decodes on stage B's rank, one K1 per chunk.
+    rec["launches"] = {run: [r["runs"][run]["launches"] for r in ranks]
+                       for run in got}
+    chunks = -(-len(imgs) // TWO_STAGE_CHUNK)
+    want_launch = {"greedy": {"K1": 1, "K2": 0},
+                   "greedy_f32": {"K1": 1, "K2": 0},
+                   "beam": {"K1": 0, "K2": 1}, "int8": {"K1": 1, "K2": 0},
+                   "tp": {"K1": 0, "K2": 0}}
+    for run, want in want_launch.items():
+        if rec["launches"][run] != [want, want]:
+            raise SystemExit(f"mesh {run}: launches {rec['launches'][run]}"
+                             f", expected {want} on each rank")
+    stage_b = [r["runs"]["two_stage"]["launches"]["K1"] for r in ranks
+               if r["runs"]["two_stage"]["stage"] == "b"]
+    if stage_b != [chunks]:
+        raise SystemExit(f"mesh two-stage: stage B launched K1 {stage_b} "
+                         f"times for {chunks} chunks")
+    # float32: the single rank's tokens and masks.
+    f32_tok = [np.array_equal(a, b) for a, b in zip(
+        got["greedy_f32"]["tokens"], single["greedy_f32"]["tokens"])]
+    rec["float32"] = {
+        "token_rows": int(sum(len(t) for t in got["greedy_f32"]["tokens"])),
+        "images_tokens_identical": int(sum(f32_tok)),
+        "masks": mask_diff(by_name(got["greedy_f32"]["masks"]),
+                           by_name(single["greedy_f32"]["masks"]))}
+    # bf16: the batched path's bars against the single-rank batched run.
+    for run in ("greedy", "tp", "int8"):
+        ref = (batched if run != "int8" else by_name(
+            [m[:, :, 0] > 127 for m in q_binarizer.binarize_images(raw)]))
+        rec[run] = {"masks": mask_diff(by_name(got[run]["masks"]), ref)}
+    for run in ("greedy", "beam"):
+        rec.setdefault(run, {})["golden_strokes_chamfer_px"] = (
+            _golden_chamfer(raw, names, got[run]["masks"],
+                            got[run]["strokes"]))
+    # Two-stage: the sequential chunks on the same sub-meshes (one rank
+    # each, so one device).
+    seq_m, seq_s = [], []
+    for c in range(0, len(raw), TWO_STAGE_CHUNK):
+        ms = [m[:, :, 0] > 127 for m in binarizer.binarize_images(
+            raw[c:c + TWO_STAGE_CHUNK])]
+        seq_m += ms
+        seq_s += estimator.process_images(ms)
+    two = got["two_stage"]
+    rec["two_stage"] = {
+        "masks": mask_diff(by_name(two["masks"]), by_name(seq_m)),
+        "strokes_identical": sum(_same_strokes(a, b) for a, b in zip(
+            two["strokes"], seq_s)), "wall_s": two["wall_s"]}
+    bad = [f"{run} masks {rec[run]['masks']}" for run in (
+        "greedy", "tp", "int8") if rec[run]["masks"]["agree"]
+        < BATCH_MASK_AGREE]
+    bad += [f"{run} golden strokes {rec[run]['golden_strokes_chamfer_px']}"
+            " px" for run in ("greedy", "beam")
+            if rec[run]["golden_strokes_chamfer_px"] > STROKES_CHAMFER_PX]
+    if (rec["float32"]["images_tokens_identical"] != len(f32_tok)
+            or rec["float32"]["masks"]["differing_px"]):
+        bad.append(f"float32 against one rank: {rec['float32']}")
+    if (rec["two_stage"]["masks"]["differing_px"]
+            or rec["two_stage"]["strokes_identical"] != len(imgs)):
+        bad.append(f"two-stage against the chunks: {rec['two_stage']}")
+    if bad:
+        raise SystemExit("mesh: " + "; ".join(bad))
+    # Throughput: dp = 2 on one card against dp = 1 (no scaling figure).
+    t_mesh = max(r["runs"]["greedy"]["binarize_s"]
+                 + r["runs"]["greedy"]["strokes_s"] for r in ranks)
+    t_one = single["greedy"]["binarize_s"] + single["greedy"]["strokes_s"]
+    rec["img_per_s"] = {"dp2": len(imgs) / t_mesh, "dp1": len(imgs) / t_one,
+                        "note": "two ranks on one card: no scaling figure"
+                        if len(set(MESH_DEVICES)) == 1 else "two cards"}
+    stages = ("binarize_s", "strokes_s")
+    rec["stage_s"] = {
+        "dp1": {k: single["greedy"][k] for k in stages},
+        "dp2": [{k: r["runs"]["greedy"][k] for k in stages} for r in ranks]}
+    if torch.cuda.device_count() >= 2 and all(
+            d.startswith("cuda") for d in MESH_DEVICES):
+        t0 = time.monotonic()
+        nccl = multihost.spawn(mesh_rank, 2, ["cuda:0", "cuda:1"], args=(
+            paths, MESH_RANK_SETUP, None, False, settings),
+            timeout_s=MESH_TIMEOUT_S, threads=None)
+        run = nccl[0]["runs"]["greedy"]
+        rec["nccl"] = {
+            "devices": ["cuda:0", "cuda:1"], "spawn_s": time.monotonic() - t0,
+            "backend": sorted({r["backend"] for r in nccl}),
+            "launches": [r["runs"]["greedy"]["launches"] for r in nccl],
+            "masks": mask_diff(by_name(run["masks"]), batched),
+            "img_per_s": len(imgs) / max(
+                r["runs"]["greedy"]["binarize_s"]
+                + r["runs"]["greedy"]["strokes_s"] for r in nccl)}
+        if rec["nccl"]["masks"]["agree"] < BATCH_MASK_AGREE or rec[
+                "nccl"]["launches"] != [{"K1": 1, "K2": 0}] * 2 or rec[
+                "nccl"]["backend"] != ["nccl"]:
+            raise SystemExit(f"mesh over two cards: {rec['nccl']}")
+    # The trainer: float32 losses and parameters against one rank's run
+    # over the same global batches; rank 0's checkpoint resumes on one
+    # device.
+    one = _mesh_train(dev, str(work / "train_one"))
+    rec["train"] = {"single_losses": {k: v[1] for k, v in one.items()}}
+    for run, sub in (("train", "train_mesh"), ("train_tp", "train_mesh_tp")):
+        losses = {k: v[1] for k, v in ranks[0][run].items()}
+        rec["train"][f"{run}_losses"] = losses
+        for part, (_, want) in one.items():
+            if len(want) != MESH_TRAIN_STEPS or any(
+                    abs(a - b) > MESH_TRAIN_LOSS_TOL
+                    for a, b in zip(losses[part], want)):
+                raise SystemExit(f"mesh {run} {part}: losses "
+                                 f"{losses[part]} against one rank's {want}")
+        worst = 0.0
+        for f in ("binarizer.msgpack", "strokes_encoder.msgpack",
+                  "strokes_decoder.msgpack"):
+            a = dict(_leaves(read_msgpack(work / sub / f)))
+            b = dict(_leaves(read_msgpack(work / "train_one" / f)))
+            for k in b:
+                worst = max(worst, float(np.abs(
+                    np.asarray(a[k], np.float64) - np.asarray(b[k])).max()))
+        rec["train"][f"{run}_param_max_abs_diff"] = worst
+        if worst > 2 * MESH_TRAIN_LR:
+            raise SystemExit(f"mesh {run}: parameters {worst} apart, more "
+                             f"than 2 lr")
+    # Both ranks of each flag's run report the same losses and hold the
+    # same model afterwards (the same start and the same updates).
+    flags = [r["train_flags"] for r in ranks]
+    rec["train"]["flags"] = flags[0]
+    if flags[0] != flags[1] or not all(
+            len(v["losses"]) == MESH_TRAIN_STEPS
+            and all(np.isfinite(v["losses"]))
+            for f in flags[0].values() for v in f.values()):
+        raise SystemExit(f"mesh: the trainer's --mesh 2 and --distributed "
+                         f"runs: {flags}")
+    resumed = _mesh_train(dev, str(work / "train_mesh"),
+                          steps=MESH_TRAIN_STEPS + 1)
+    rec["train"]["resumed_from"] = {k: v[0] for k, v in resumed.items()}
+    if set(rec["train"]["resumed_from"].values()) != {MESH_TRAIN_STEPS}:
+        raise SystemExit(f"mesh train: rank 0's checkpoints resumed at "
+                         f"{rec['train']['resumed_from']}")
+    # The CLI's --mesh 2 on the golden image.
+    cli_in = work / "cli_in"
+    cli_in.mkdir()
+    (cli_in / "golden_input.png").write_bytes(
+        (GOLDEN / "golden_input.png").read_bytes())
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        code = cli.entrypoint(["-models", str(MODELS), "-input", str(cli_in),
+                               "--output", str(work / "cli"), "--mesh", "2",
+                               "--device", str(dev.type)])
+    rec["cli"] = {"exit": code,
+                  "warned": "[warn] --mesh 2" in captured.getvalue(),
+                  "files": len(list((work / "cli").glob("*_STROKES.json"))),
+                  "cards": torch.cuda.device_count()}
+    if code != 0 or rec["cli"]["files"] != 1:
+        raise SystemExit(f"mesh: the CLI's --mesh 2 {rec['cli']}")
+    return rec
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    else:
+        yield path, tree
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None,
@@ -2411,6 +2858,39 @@ def main(argv=None) -> int:
         f"{per[q]['sequential_chunks']:.4f}, --batch {per[q]['batch']:.4f}),"
         f" overlap {two_rec[q]['overlap']:.3f}" for q in per)
         + "; per-image mode as the per-image run")
+
+    # 18. the mesh ------------------------------------------------------------
+    t0 = time.monotonic()
+    mesh_rec = mesh_phase(cli, inputs, imgs, batch_out, q_binarizer,
+                          binarizer, estimator, dev)
+    record["mesh"] = mesh_rec
+    print(json.dumps({"mesh": {k: v for k, v in mesh_rec.items()
+                               if k != "launches"}}), flush=True)
+    print(json.dumps({"mesh_img_per_s": mesh_rec["img_per_s"],
+                      "stage_s": mesh_rec["stage_s"], "card": smi}),
+          flush=True)
+    mesh_k = {run: sum(r[k] for r in mesh_rec["launches"][run])
+              for run, k in (("greedy", "K1"), ("greedy_f32", "K1"),
+                             ("int8", "K1"), ("two_stage", "K1"),
+                             ("beam", "K2"))}
+    _phase("mesh", t0, f"{len(mesh_rec['devices'])} ranks on "
+           f"{', '.join(mesh_rec['devices'])} over {mesh_rec['backend']}"
+           + (", and on cuda:0, cuda:1 over nccl" if "nccl" in mesh_rec
+              else "") + f": K1 once per rank per batch, float32 tokens as "
+           f"one rank's, masks against --batch "
+           f"{mesh_rec['greedy']['masks']['agree']:.6f} (tp=2 "
+           f"{mesh_rec['tp']['masks']['agree']:.6f}, int8 "
+           f"{mesh_rec['int8']['masks']['agree']:.6f}), two-stage as the "
+           f"chunks; trainer losses as one rank's (dp=2 and tp=2), "
+           f"parameters within "
+           f"{mesh_rec['train']['train_param_max_abs_diff']:.2e} and "
+           f"{mesh_rec['train']['train_tp_param_max_abs_diff']:.2e}; CLI "
+           f"--mesh 2 "
+           + ("warned and ran on one device" if mesh_rec["cli"]["warned"]
+              else "ran over the cards")
+           + f"; {mesh_rec['img_per_s']['dp2']:.2f} img/s at dp=2 against "
+           f"{mesh_rec['img_per_s']['dp1']:.2f} at dp=1 "
+           f"({mesh_rec['img_per_s']['note']}), {smi}")
     launches_by_path = {
         "K1": {"main": launches, "batch": batch_rec["launches"]["K1"],
                "serve": k1_served, "real": k1_real, "batch-real": k1_breal,
@@ -2421,12 +2901,16 @@ def main(argv=None) -> int:
                "int8-eval": int8_rec["eval"]["launches"]["K1"],
                "two-stage": two_rec["none"]["launches"]["K1"],
                "two-stage-int8": two_rec["int8"]["launches"]["K1"],
-               "two-stage-per-image": two_rec["per_image"]["launches"]["K1"]}
+               "two-stage-per-image": two_rec["per_image"]["launches"]["K1"],
+               "mesh": mesh_k["greedy"], "mesh-f32": mesh_k["greedy_f32"],
+               "mesh-int8": mesh_k["int8"],
+               "mesh-two-stage": mesh_k["two_stage"]}
         | onnx_rec["launches"]["K1"],
         "K2": {"main-beam": beam_launches,
                "batch-beam": bbeam_rec["launches"]["K2"],
                "real-beam": k2_rbeam,
-               "int8-beam": int8_rec["beam"]["launches"]["K2"]}
+               "int8-beam": int8_rec["beam"]["launches"]["K2"],
+               "mesh-beam": mesh_k["beam"]}
         | onnx_rec["launches"]["K2"],
         "K3": {"greedy_decode(fused=True)": None}}
 

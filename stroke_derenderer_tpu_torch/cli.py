@@ -5,7 +5,7 @@
         [--decode greedy|beam] [--beam-size K] [--batch] [--fused] \
         [--no-strokes] [--svg] [--preset reference|real] [--redecode C] \
         [--redecode-passes K] [--refine PX] [--host-partition] \
-        [--quant none|int8] [--two-stage [CHUNK]]
+        [--quant none|int8] [--two-stage [CHUNK]] [--mesh N [--mesh-tp K]]
     python -m stroke_derenderer_tpu_torch.cli --init-models DIR
     python -m stroke_derenderer_tpu_torch.cli -models DIR --export-onnx OUT
 
@@ -33,13 +33,24 @@ may also be the upstream project's own ONNX model directory
 imported on the fly (``weights.graph_import``). ``--export-onnx OUT``
 writes a native ``-models`` directory in that layout
 (``weights.graph_export``) and exits. Runs on the card unless ``--device
-cpu`` is given.
+cpu`` is given. ``--mesh N`` runs N ranks, one process each
+(``parallel.multihost.spawn``; on ``cuda:0`` .. ``cuda:N-1``, or on the
+CPU with ``--device cpu``), over a ('dp', 'tp') mesh with ``--mesh-tp K``
+(``parallel.mesh``): every rank runs the same run on the same inputs, the
+tile and glyph batches sharded over dp and the binarizer's tile width over
+tp, and rank 0 alone prints and writes the files; the exit code is
+non-zero when a rank fails. With fewer than N cards it warns and runs on
+one device, as the JAX CLI does.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
+import os
+import sys
 import time
 from pathlib import Path
 
@@ -138,13 +149,22 @@ def parse_args(argv=None):
                              "encoder conv stacks (ops/quant.py: im2col "
                              "and an int8 GEMM with int32 sums). Any "
                              "checkpoint runs in either mode.")
+    parser.add_argument("--mesh", type=int, default=0, metavar="N",
+                        help="Data-parallel inference over N ranks, one "
+                             "process each: params replicated, tile/glyph "
+                             "batch axes sharded over a ('dp', 'tp') mesh "
+                             "(parallel/mesh.py). 0/1 = single device.")
+    parser.add_argument("--mesh-tp", type=int, default=1, metavar="K",
+                        help="Sequence-parallel extent within --mesh: the "
+                             "binarizer's tile WIDTH axis shards over a tp "
+                             "axis of size K (N must be divisible by K).")
     return parser.parse_args(argv)
 
 
 def initialize_sessions(folderpath, device=None,
                         se_overrides: dict | None = None,
                         fused: bool = False,
-                        bin_overrides: dict | None = None):
+                        bin_overrides: dict | None = None, mesh=None):
     """Both pipelines from a model directory: the flax msgpack weights
     ``binarizer``, ``strokes_encoder``, ``strokes_decoder`` and, where the
     config has a projection head, ``strokes_projection``, and the config
@@ -156,7 +176,9 @@ def initialize_sessions(folderpath, device=None,
     from the folder (or no folder at all) fall back to random weights with
     a warning, as in the JAX CLI. A folder that holds ``binarizer.onnx``
     and no ``binarizer.msgpack`` is the upstream project's ONNX model
-    directory, imported on the fly (``weights.graph_import``)."""
+    directory, imported on the fly (``weights.graph_import``). ``mesh``:
+    this rank's ``parallel.mesh.Mesh`` (both pipelines run on its
+    device)."""
     folder = Path(folderpath) if folderpath else None
 
     def _opt(name):
@@ -165,7 +187,7 @@ def initialize_sessions(folderpath, device=None,
 
     if _opt("binarizer.onnx") and not _opt("binarizer.msgpack"):
         return _sessions_from_onnx(folder, device, se_overrides, fused,
-                                   bin_overrides)
+                                   bin_overrides, mesh)
     bin_cfg = BinarizerConfig.from_json(_opt("configs_binarizer.json"))
     if bin_overrides:
         bin_cfg = dataclasses.replace(bin_cfg, **bin_overrides)
@@ -173,7 +195,8 @@ def initialize_sessions(folderpath, device=None,
     if folder and not bin_weights:
         print(f"[warn] {folder}/binarizer.msgpack not found; using random "
               "init")
-    binarizer = Binarizer(bin_cfg, bin_weights, device=device, fused=fused)
+    binarizer = Binarizer(bin_cfg, bin_weights, device=device, fused=fused,
+                          mesh=mesh)
     se_cfg = StrokesConfig.from_json(_opt("configs_strokes.json"))
     if se_overrides:
         se_cfg = dataclasses.replace(se_cfg, **se_overrides)
@@ -188,12 +211,12 @@ def initialize_sessions(folderpath, device=None,
     elif folder:
         print(f"[warn] stroke model weights not found in {folder}; using "
               "random init")
-    estimator = StrokeEstimator(se_cfg, paths, device=device)
+    estimator = StrokeEstimator(se_cfg, paths, device=device, mesh=mesh)
     return binarizer, estimator
 
 
 def _sessions_from_onnx(folder: Path, device, se_overrides, fused: bool,
-                        bin_overrides):
+                        bin_overrides, mesh=None):
     """Both pipelines straight from the upstream project's ONNX model
     directory (``weights.graph_import.import_reference_models``)."""
     from stroke_derenderer_tpu_torch.weights.graph_import import (
@@ -207,9 +230,10 @@ def _sessions_from_onnx(folder: Path, device, se_overrides, fused: bool,
     if se_overrides:
         se_cfg = dataclasses.replace(se_cfg, **se_overrides)
     binarizer = Binarizer(bin_cfg, device=device, fused=fused,
-                          variables=bin_vars)
+                          variables=bin_vars, mesh=mesh)
     estimator = StrokeEstimator(se_cfg, device=device,
-                                variables=(enc_vars, dec_vars, proj_vars))
+                                variables=(enc_vars, dec_vars, proj_vars),
+                                mesh=mesh)
     return binarizer, estimator
 
 
@@ -230,13 +254,27 @@ def _save_mask(out_dir: Path, filename: str, mask) -> str:
     return bin_path
 
 
+def _savers(write: bool):
+    """(save mask, save strokes) of a run: the real ones, or, for a rank
+    other than a mesh's first (``write`` False), ones that write
+    nothing."""
+    if write:
+        return _save_mask, _save_strokes
+    nothing = lambda *a, **k: ""
+    return nothing, nothing
+
+
 def run(imgs, binarizer: Binarizer, estimator: StrokeEstimator | None,
-        output_folder, strokes: bool = True, svg: bool = False) -> int:
+        output_folder, strokes: bool = True, svg: bool = False,
+        write: bool = True) -> int:
     """Per image: binarize -> save -> estimate strokes -> rescale -> save
     (strokes only with ``strokes`` and an estimator; an SVG beside the JSON
-    with ``svg``). Returns the number of images processed."""
+    with ``svg``). Returns the number of images processed. ``write``
+    False: the same work, no file written."""
+    save_mask, save_strokes = _savers(write)
     out_dir = Path(output_folder)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if write:
+        out_dir.mkdir(parents=True, exist_ok=True)
     done = 0
     for img, filename in imgs:
         try:
@@ -245,7 +283,7 @@ def run(imgs, binarizer: Binarizer, estimator: StrokeEstimator | None,
             img_bin = binarizer.binarize_image(img)
             mask = img_bin[:, :, 0] > (255 * binarizer.config.bin_thr)
             comp_bin_time = round(time.time() - start_bin, 4)
-            bin_path = _save_mask(out_dir, filename, mask)
+            bin_path = save_mask(out_dir, filename, mask)
             print(f"{filename} took {comp_bin_time} seconds to binarize. "
                   f"Result is saved to {bin_path}")
             if strokes and estimator is not None:
@@ -253,8 +291,8 @@ def run(imgs, binarizer: Binarizer, estimator: StrokeEstimator | None,
                 start_se = time.time()
                 stroke_list = estimator.process_image(mask)
                 comp_se_time = round(time.time() - start_se, 4)
-                st_path = _save_strokes(out_dir, filename, img, stroke_list,
-                                        ratio, svg)
+                st_path = save_strokes(out_dir, filename, img, stroke_list,
+                                       ratio, svg)
                 print(f"{filename} took {comp_se_time} seconds to estimate "
                       f"strokes. Result is saved to {st_path}")
             done += 1
@@ -265,13 +303,16 @@ def run(imgs, binarizer: Binarizer, estimator: StrokeEstimator | None,
 
 def run_batched(imgs, binarizer: Binarizer,
                 estimator: StrokeEstimator | None, output_folder,
-                strokes: bool = True, svg: bool = False) -> int:
+                strokes: bool = True, svg: bool = False,
+                write: bool = True) -> int:
     """Throughput mode: one device batch for every image's tiles
     (``binarize_images``), one for every image's glyphs
     (``process_images``). The same files as :func:`run`; the prints give
     the amortized time per image. A failure fails the whole batch."""
+    save_mask, save_strokes = _savers(write)
     out_dir = Path(output_folder)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if write:
+        out_dir.mkdir(parents=True, exist_ok=True)
     if not imgs:
         return 0
     t0 = time.time()
@@ -279,7 +320,7 @@ def run_batched(imgs, binarizer: Binarizer,
     masks = [b[:, :, 0] > (255 * binarizer.config.bin_thr) for b in bins]
     t_bin = round((time.time() - t0) / len(imgs), 4)
     for (img, filename), mask in zip(imgs, masks):
-        bin_path = _save_mask(out_dir, filename, mask)
+        bin_path = save_mask(out_dir, filename, mask)
         print(f"{filename} took {t_bin} seconds to binarize (amortized). "
               f"Result is saved to {bin_path}")
     if strokes and estimator is not None:
@@ -288,8 +329,8 @@ def run_batched(imgs, binarizer: Binarizer,
         t_se = round((time.time() - t0) / len(imgs), 4)
         for (img, filename), mask, stroke_list in zip(imgs, masks,
                                                       all_strokes):
-            st_path = _save_strokes(out_dir, filename, img, stroke_list,
-                                    img.shape[0] / mask.shape[0], svg)
+            st_path = save_strokes(out_dir, filename, img, stroke_list,
+                                   img.shape[0] / mask.shape[0], svg)
             print(f"{filename} took {t_se} seconds to estimate strokes "
                   f"(amortized). Result is saved to {st_path}")
     return len(imgs)
@@ -298,19 +339,21 @@ def run_batched(imgs, binarizer: Binarizer,
 def run_two_stage(imgs, binarizer: Binarizer,
                   estimator: StrokeEstimator | None, output_folder,
                   chunk_size: int = 8, strokes: bool = True,
-                  svg: bool = False) -> int:
+                  svg: bool = False, write: bool = True) -> int:
     """Overlap mode: stage A (``binarize_images`` of a chunk) beside stage
     B (``process_images`` of the chunk before it), each on its own thread
     (``parallel.TwoStagePipeline``). The same files as :func:`run`; the
     prints give the amortized time per image. Without strokes there is no
     stage B, and :func:`run_batched` does the same work."""
+    save_mask, save_strokes = _savers(write)
     out_dir = Path(output_folder)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if write:
+        out_dir.mkdir(parents=True, exist_ok=True)
     if not imgs:
         return 0
     if not strokes or estimator is None:
         return run_batched(imgs, binarizer, None, output_folder,
-                           strokes=False, svg=svg)
+                           strokes=False, svg=svg, write=write)
     from stroke_derenderer_tpu_torch.parallel import TwoStagePipeline
     pipe = TwoStagePipeline(binarizer, estimator)
     t0 = time.time()
@@ -318,11 +361,11 @@ def run_two_stage(imgs, binarizer: Binarizer,
                                               chunk_size=chunk_size)
     t_img = round((time.time() - t0) / len(imgs), 4)
     for (img, filename), mask, stroke_list in zip(imgs, masks, all_strokes):
-        bin_path = _save_mask(out_dir, filename, mask)
+        bin_path = save_mask(out_dir, filename, mask)
         print(f"{filename} took {t_img} seconds e2e (two-stage amortized). "
               f"Result is saved to {bin_path}")
-        st_path = _save_strokes(out_dir, filename, img, stroke_list,
-                                img.shape[0] / mask.shape[0], svg)
+        st_path = save_strokes(out_dir, filename, img, stroke_list,
+                               img.shape[0] / mask.shape[0], svg)
         print(f"{filename} strokes saved to {st_path}")
     return len(imgs)
 
@@ -380,6 +423,46 @@ def entrypoint(argv=None) -> int:
         print(f"exported reference-layout ONNX model dir to "
               f"{args.export_onnx}")
         return 0
+    if args.mesh and args.mesh > 1:
+        import torch
+
+        from stroke_derenderer_tpu_torch.parallel import multihost
+        n_dev = (torch.cuda.device_count()
+                 if torch.device(args.device).type == "cuda" else args.mesh)
+        if n_dev < args.mesh:
+            print(f"[warn] --mesh {args.mesh} requested but only {n_dev} "
+                  f"device(s) present; running single-device")
+        else:
+            cpu = torch.device(args.device).type != "cuda"
+            try:
+                multihost.spawn(
+                    _mesh_rank, args.mesh,
+                    multihost.rank_devices(args.device, args.mesh),
+                    args=(argv,), threads=max(
+                        1, (os.cpu_count() or 1) // args.mesh)
+                    if cpu else None)
+            except (RuntimeError, TimeoutError) as exc:
+                print(f"[error] --mesh {args.mesh}: {exc}")
+                return 1
+            return 0
+    _run(args)
+    return 0
+
+
+def _mesh_rank(argv) -> None:
+    """One rank of ``--mesh``: the run of :func:`entrypoint` over the
+    mesh; only rank 0 prints and writes."""
+    from stroke_derenderer_tpu_torch.parallel.mesh import make_mesh
+    args = parse_args(argv)
+    mesh = make_mesh(args.mesh, tp=args.mesh_tp)
+    with contextlib.redirect_stdout(
+            sys.stdout if mesh.rank == 0 else io.StringIO()):
+        _run(args, mesh)
+
+
+def _run(args, mesh=None) -> None:
+    """The run the flags ask for, on one device or as a rank of ``mesh``."""
+    write = mesh is None or mesh.rank == 0
     imgs = load_images(sorted(Path(args.input).glob("*.png")))
     se_overrides = strokes_overrides(args)
     bin_overrides = {}
@@ -387,16 +470,15 @@ def entrypoint(argv=None) -> int:
         se_overrides["quant"] = bin_overrides["quant"] = args.quant
     binarizer, estimator = initialize_sessions(
         args.models, device=args.device, se_overrides=se_overrides,
-        fused=args.fused, bin_overrides=bin_overrides)
+        fused=args.fused, bin_overrides=bin_overrides, mesh=mesh)
     if args.two_stage:
         run_two_stage(imgs, binarizer, estimator, args.output,
                       chunk_size=args.two_stage,
-                      strokes=not args.no_strokes, svg=args.svg)
-        return 0
+                      strokes=not args.no_strokes, svg=args.svg, write=write)
+        return
     runner = run_batched if args.batch else run
     runner(imgs, binarizer, estimator, args.output,
-           strokes=not args.no_strokes, svg=args.svg)
-    return 0
+           strokes=not args.no_strokes, svg=args.svg, write=write)
 
 
 if __name__ == "__main__":

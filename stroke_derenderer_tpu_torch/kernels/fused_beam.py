@@ -30,7 +30,8 @@ import torch
 
 from stroke_derenderer_tpu_torch.config import BOS, EOS, PAD
 from stroke_derenderer_tpu_torch.kernels.fused_decode import (
-    _MATRICES, _check, launch_step_kernel, pack_step_weights, step_weights,
+    _MATRICES, _check, decode_sharded, launch_step_kernel, pack_step_weights,
+    step_weights,
 )
 from stroke_derenderer_tpu_torch.models.decoder import decode_step
 
@@ -188,3 +189,16 @@ def fused_beam_decode(decoder, enc_seq, max_length: int, beam_size: int = 5,
         enc_seq, enc_proj, h0.contiguous(), c0.contiguous(),
         decoder.weights(dt), max_length, beam_size, packed)
     return select_beam(preds, score, lens, length_penalty)
+
+
+def fused_beam_decode_sharded(decoder, enc_seq, max_length: int, mesh,
+                              batch: int | None = None, beam_size: int = 5,
+                              length_penalty: float = 0.0):
+    """:func:`fused_beam_decode` with the glyph batch sharded over the
+    mesh's dp ranks (counterpart of the JAX ``fused_beam_decode_sharded``):
+    ``fused_decode.decode_sharded``'s contract, one K2 launch per rank, the
+    best beams' tokens of every rank gathered in global row order."""
+    return decode_sharded(
+        lambda rows: fused_beam_decode(decoder, rows, max_length, beam_size,
+                                       length_penalty),
+        enc_seq, max_length, mesh, batch)

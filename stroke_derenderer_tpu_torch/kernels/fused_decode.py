@@ -312,3 +312,41 @@ def fused_greedy_decode(decoder, enc_seq, max_length: int):
     return fused_greedy_decode_packed(enc_seq, enc_proj, h0.contiguous(),
                                       c0.contiguous(), decoder.weights(dt),
                                       max_length, packed)
+
+
+def decode_sharded(decode, enc_seq, max_length: int, mesh,
+                   batch: int | None = None):
+    """The sharded contract of K1 and K2 (the JAX ``shard_map`` over
+    'dp'): ``enc_seq`` holds this rank's rows of a global batch of
+    ``batch`` rows (default dp x its rows), which dp must divide: the first
+    of the rank's ``batch // dp`` rows, the rest padding. ``decode(rows)``
+    -> (rows, max_length) int32 tokens runs on the rank's rows (one launch;
+    none when it has no rows), the padding gets PAD, and every rank gets
+    the (batch, max_length) tokens of all of them, gathered over its dp
+    group in global row order. Rows never interact, so no other collective
+    is needed; the ranks of one tp group decode the same rows, as
+    replicas."""
+    dp = mesh.shape["dp"]
+    batch = enc_seq.shape[0] * dp if batch is None else batch
+    if batch % dp:
+        raise ValueError(f"batch {batch} not divisible by dp={dp}")
+    local = batch // dp
+    if enc_seq.shape[0] > local:
+        raise ValueError(f"{enc_seq.shape[0]} rows on this rank, more than "
+                         f"batch {batch} / dp {dp}")
+    out = torch.full((local, max_length), PAD, dtype=torch.int32,
+                     device=enc_seq.device)
+    if enc_seq.shape[0]:
+        out[:enc_seq.shape[0]] = decode(enc_seq)
+    return mesh.all_gather(out, "dp", 0)
+
+
+def fused_greedy_decode_sharded(decoder, enc_seq, max_length: int, mesh,
+                                batch: int | None = None):
+    """:func:`fused_greedy_decode` with the glyph batch sharded over the
+    mesh's dp ranks (counterpart of the JAX
+    ``fused_greedy_decode_sharded``): :func:`decode_sharded`'s contract,
+    one K1 launch per rank (the plain version on the CPU)."""
+    return decode_sharded(
+        lambda rows: fused_greedy_decode(decoder, rows, max_length),
+        enc_seq, max_length, mesh, batch)

@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from stroke_derenderer_tpu_torch.config import BOS, EOS, PAD
+from stroke_derenderer_tpu_torch.parallel.mesh import column_parallel
 
 # Weights the kernel and the step read; the vocabulary head stays float32.
 STEP_WEIGHTS = ("watt", "batt", "v", "bv", "wf", "bf", "wx", "wh", "blstm",
@@ -128,7 +129,10 @@ class AttentiveDecoder(nn.Module):
             "init_c_b", "watt", "batt", "v", "bv", "wf", "bf", "wx", "wh",
             "blstm", "emb")}
         enc_f32 = enc_seq.float()
-        enc_proj = enc_seq.to(dt) @ w["enc_att_w"] + w["enc_att_b"]
+        tp = getattr(self, "tp_mesh", None)  # enc_att_w column-parallel
+        enc_proj = (enc_seq.to(dt) @ w["enc_att_w"] if tp is None else
+                    column_parallel(lambda x: x @ w["enc_att_w"],
+                                    enc_seq.to(dt), tp, -1)) + w["enc_att_b"]
         mean = enc_f32.mean(dim=1).to(enc_seq.dtype).to(dt)
         h = mean @ w["init_h_w"] + w["init_h_b"]
         c = mean @ w["init_c_w"] + w["init_c_b"]

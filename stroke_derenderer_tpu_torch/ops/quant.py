@@ -15,12 +15,20 @@ by the product of the two scales and rounds once to the input's dtype.
 ``quant="int8"`` (``models.layers.conv``). :func:`int8_linear` is the
 ``Dense`` counterpart, wired into no model: the decoder stays in its float
 dtype, as in the JAX package. Because the activation scale spans the
-batch, a row's output under int8 depends on the rows beside it.
+batch, a row's output under int8 depends on the rows beside it. Under a
+mesh (``parallel.mesh.spmd``) the batch is spread over the ranks, and the
+activation scale is the max over every rank that holds part of the
+tensor, taken before the division, pad rows included: the JAX package's
+``jnp.max`` over a dp- (and tp-) sharded input is the same global
+reduction, so a sharded int8 run equals the unsharded run over the same
+padded batch.
 """
 
 from __future__ import annotations
 
 import torch
+
+from stroke_derenderer_tpu_torch.parallel.mesh import active
 
 # Symmetric int8: +-127 (not -128), so that negation is exact.
 _QMAX = 127.0
@@ -45,11 +53,15 @@ def _quantize(x: torch.Tensor, dims=None):
     ``torch.round`` rounds half to even, as ``jnp.round`` does. The 127 is
     a tensor on x's device: on the card, PyTorch divides by a Python
     scalar as a multiply by its reciprocal, which is a rounding away from
-    the division at times."""
+    the division at times. A per-tensor scale (``dims`` None) under a mesh
+    is the max over the mesh's ranks."""
     xf = x.float()
     a = xf.abs()
     m = (a.amax().reshape((1,) * xf.ndim) if dims is None
          else a.amax(dim=dims, keepdim=True))
+    ctx = active()
+    if dims is None and ctx is not None:
+        m = ctx.mesh.all_max(m)
     scale = torch.clamp(m / torch.full_like(m, _QMAX), min=_EPS)
     q = torch.clamp(torch.round(xf / scale), -_QMAX, _QMAX).to(torch.int8)
     return q, scale
@@ -88,19 +100,21 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d_int32(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1,
-                 padding: int = 0, groups: int = 1) -> torch.Tensor:
+                 padding=0, groups: int = 1) -> torch.Tensor:
     """The int32 sums of an NCHW int8 convolution: ``xq`` (B, C, H, W),
-    ``wq`` (O, C / groups, kh, kw) -> (B, Ho, Wo, O) int32, channels last.
+    ``wq`` (O, C / groups, kh, kw) -> (B, Ho, Wo, O) int32, channels last;
+    ``padding`` an int or (rows, columns).
     The im2col holds, for every output pixel, its (kh, kw, C / groups)
     window of the zero-padded input, taken as kh * kw strided slices and
     written straight into the GEMM's aligned buffer."""
     b, c, h, w = xq.shape
     o, cg, kh, kw = wq.shape
-    ho = (h + 2 * padding - kh) // stride + 1
-    wo = (w + 2 * padding - kw) // stride + 1
-    xp = torch.zeros((b, h + 2 * padding, w + 2 * padding, c),
+    ph, pw = (padding, padding) if isinstance(padding, int) else padding
+    ho = (h + 2 * ph - kh) // stride + 1
+    wo = (w + 2 * pw - kw) // stride + 1
+    xp = torch.zeros((b, h + 2 * ph, w + 2 * pw, c),
                      dtype=torch.int8, device=xq.device)
-    xp[:, padding:padding + h, padding:padding + w] = xq.permute(0, 2, 3, 1)
+    xp[:, ph:ph + h, pw:pw + w] = xq.permute(0, 2, 3, 1)
     m, og, k = b * ho * wo, o // groups, kh * kw * cg
     out = torch.empty((b, ho, wo, o), dtype=torch.int32, device=xq.device)
     for g in range(groups):
@@ -119,7 +133,7 @@ def conv2d_int32(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1,
 
 
 def int8_conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
-                padding: int = 0, groups: int = 1) -> torch.Tensor:
+                padding=0, groups: int = 1) -> torch.Tensor:
     """``F.conv2d(x, w, None, stride, padding, groups=groups)`` (NCHW, no
     bias) with an int8 contraction, the JAX ``int8_conv_general_dilated``:
     ``x`` quantized per tensor, ``w`` per output channel, the int32 sums

@@ -9,6 +9,15 @@ launch on the current stream), so the two stages' kernels may run side by
 side; with ``devices`` of two or more cards, stage A lives on the first and
 stage B on the one half-way along the list. The outputs are those of the
 sequential run over the same images or chunks.
+
+Over a mesh (pipelines built with ``mesh=``, every rank running this same
+code), the mesh splits along dp as the JAX package splits it: stage A on
+the first half of the dp rows, stage B on the rest, each tp group whole.
+Stage A's ranks binarize and its first rank sends each chunk's host masks
+to stage B's ranks over gloo; stage B's ranks decode them; at the end
+stage B's first rank shares the strokes, so that every rank returns the
+whole result. A mesh with dp = 1 is shared by both stages, each stage on
+its own thread with process groups of its own.
 """
 
 from __future__ import annotations
@@ -19,20 +28,32 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 class TwoStagePipeline:
     def __init__(self, binarizer, estimator, devices=None):
         """``devices``: ``torch.device``s (or names) for the two stages,
         default every card when the binarizer is on a card, else its
-        device; on one device both stages share it. A pipeline that
-        carries a mesh (the JAX package's dp x tp split) is not ported."""
-        if (getattr(binarizer, "mesh", None) is not None
-                or getattr(estimator, "mesh", None) is not None):
-            raise NotImplementedError(
-                "two-stage over a mesh is not ported (ROADMAP.md item 13)")
+        device; on one device both stages share it. Pipelines that carry a
+        mesh are split over it instead (collective: every rank of the mesh
+        builds the pipeline); each stage's pipeline holds its half of the
+        mesh only while the stage runs, and its own mesh again after."""
         self.binarizer = binarizer
         self.estimator = estimator
+        self.mesh = binarizer.mesh if binarizer.mesh is not None \
+            else estimator.mesh
+        self._split = False
+        self._meshes = {}
+        if self.mesh is not None:
+            mesh_a, mesh_b = self.mesh.split()
+            self._meshes = {"a": mesh_a, "b": mesh_b}
+            self._split = self.mesh.shape["dp"] >= 2
+            self._a0 = int(mesh_a.ranks.ravel()[0])
+            self._b0 = int(mesh_b.ranks.ravel()[0])
+            self._b_ranks = [int(r) for r in mesh_b.ranks.ravel()]
+            self._in_a = mesh_a.rank is not None
+            devices = [self.mesh.device]
         if devices is None:
             devices = ([torch.device("cuda", i)
                         for i in range(torch.cuda.device_count())]
@@ -58,15 +79,45 @@ class TwoStagePipeline:
                 s.wait_stream(torch.cuda.current_stream(dev))
                 self._streams[stage] = s
 
+    @contextlib.contextmanager
     def _on(self, stage: str):
-        """The device and stream context of ``stage`` ("a" or "b")."""
-        if stage not in self._streams:
-            return contextlib.nullcontext()
-        stack = contextlib.ExitStack()
-        stack.enter_context(torch.cuda.device(
-            self.dev_a if stage == "a" else self.dev_b))
-        stack.enter_context(torch.cuda.stream(self._streams[stage]))
-        return stack
+        """The device, stream and sub-mesh of ``stage`` ("a" or "b")."""
+        with contextlib.ExitStack() as stack:
+            if stage in self._meshes:
+                pipe = self.binarizer if stage == "a" else self.estimator
+                stack.callback(setattr, pipe, "mesh", pipe.mesh)
+                pipe.mesh = self._meshes[stage]
+            if stage in self._streams:
+                stack.enter_context(torch.cuda.device(
+                    self.dev_a if stage == "a" else self.dev_b))
+                stack.enter_context(torch.cuda.stream(self._streams[stage]))
+            yield
+
+    def _run_split(self, produce, consume) -> None:
+        """:meth:`_run` over the two halves of a mesh: stage A's ranks
+        produce, its first rank sending each item (and at the end None) to
+        stage B's ranks over gloo; stage B's ranks consume what they
+        receive."""
+        group = self.mesh._group("host")
+        if self._in_a:
+            def put(item) -> bool:
+                if dist.get_rank() == self._a0:
+                    for r in self._b_ranks:
+                        dist.send_object_list([item], dst=r, group=group)
+                return True
+            try:
+                with self._on("a"):
+                    produce(put, threading.Event())
+            finally:
+                put(None)
+            return
+        with self._on("b"):
+            while True:
+                box = [None]
+                dist.recv_object_list(box, src=self._a0, group=group)
+                if box[0] is None:
+                    return
+                consume(box[0])
 
     def _run(self, produce, consume, maxsize: int):
         """``produce(put, stop)`` on a stage-A thread, feeding
@@ -74,7 +125,10 @@ class TwoStagePipeline:
         (``stop`` is set once the consumer has stopped). The producer's put
         gives up once the consumer has stopped, so it never blocks on a
         full queue; the end-of-stream sentinel is delivered, not dropped;
-        the first error of either side is raised here."""
+        the first error of either side is raised here. Over a split mesh:
+        :meth:`_run_split`."""
+        if self._split:
+            return self._run_split(produce, consume)
         q: queue.Queue = queue.Queue(maxsize=maxsize)
         errors: list = []
         stop = threading.Event()
@@ -136,11 +190,12 @@ class TwoStagePipeline:
 
         def consume(item):
             i, mask = item
+            masks[i] = mask
             strokes[i] = self.estimator.process_image(mask,
                                                       max_length=max_length)
 
         self._run(produce, consume, maxsize=2)
-        return masks, strokes
+        return masks, self._shared(strokes)
 
     def process_batched(self, images, chunk_size: int = 8,
                         max_length: int | None = None):
@@ -169,9 +224,19 @@ class TwoStagePipeline:
 
         def consume(item):
             idx, chunk_masks = item
-            for i, s in zip(idx, self.estimator.process_images(
+            for i, m, s in zip(idx, chunk_masks, self.estimator.process_images(
                     chunk_masks, max_length=max_length)):
-                strokes[i] = s
+                masks[i], strokes[i] = m, s
 
         self._run(produce, consume, maxsize=1)
-        return masks, strokes
+        return masks, self._shared(strokes)
+
+    def _shared(self, strokes: list) -> list:
+        """Over a split mesh, stage B's strokes on every rank (stage A's
+        ranks have none of their own)."""
+        if not self._split:
+            return strokes
+        box = [strokes]
+        dist.broadcast_object_list(box, src=self._b0,
+                                   group=self.mesh._group("host"))
+        return box[0]

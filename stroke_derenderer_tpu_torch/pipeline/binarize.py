@@ -14,6 +14,15 @@ through the batched fused program, which uploads the resized lines and
 downloads bit-packed masks; the rest share one bucketed tile batch. The
 output of each image is a (height, W_rs, 1) uint8 image in {0, 255} at the
 height-normalized resolution, the same in every mode.
+
+With a ``mesh`` (``parallel.mesh``) every rank runs this code on the same
+images: the UNet's parameters are replicated, the tile batch is padded to
+a multiple of lcm(``batch_bucket``, dp) (the fused program's images to a
+multiple of dp) and sharded on dp, and, when tp divides the tile width
+(``parallel.mesh.tile_sharding``), each rank of a tp group takes its own
+columns of every tile (the 3x3 convolutions exchange halos, GroupNorm sums
+over tp). The masks are gathered over tp (columns) and dp (rows), so every
+rank holds all of them.
 """
 
 from __future__ import annotations
@@ -28,6 +37,9 @@ from stroke_derenderer_tpu_torch.ops.resize import resize_to_height_np
 from stroke_derenderer_tpu_torch.ops.tiling import (
     TilePlan, cut_tiles, cut_tiles_np, plan_tiles, stitch_tiles,
     stitch_tiles_np,
+)
+from stroke_derenderer_tpu_torch.parallel.mesh import (
+    padded_batch, spmd, tile_sharding,
 )
 from stroke_derenderer_tpu_torch.weights import (
     from_flax_unet, init_binarizer, read_msgpack,
@@ -63,7 +75,8 @@ def _prep_line(image: np.ndarray, cfg: BinarizerConfig,
 
 class Binarizer:
     def __init__(self, config: BinarizerConfig, weights_path=None,
-                 device=None, fused: bool = False, variables=None):
+                 device=None, fused: bool = False, variables=None,
+                 mesh=None):
         """``weights_path``: the UNet's flax msgpack file; ``variables``:
         its flax variables (or params) tree given in memory instead, as an
         ONNX import gives it; with neither, random weights
@@ -74,9 +87,23 @@ class Binarizer:
         group of ``binarize_images`` through the batched fused program.
         Every UNet call sees the tile batch the JAX package gives its
         program (padded to ``config.batch_bucket`` on the bucketed path), so
-        that int8's per-tensor scale spans the same tiles."""
+        that int8's per-tensor scale spans the same tiles. ``mesh``: this
+        rank's ``parallel.mesh.Mesh``; the pipeline then runs on the mesh's
+        device (``device`` is not read)."""
         self.config = cfg = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
+        # The tp extent of the tile width (1: dp only).
+        self._tp = 1
+        if mesh is not None and "tp" in tile_sharding(mesh, 4, cfg.width):
+            self._tp = mesh.shape["tp"]
+            levels = 2 ** len(cfg.features)
+            if (cfg.width // self._tp) % levels:
+                raise ValueError(
+                    f"a tile width of {cfg.width} over tp={self._tp} leaves "
+                    f"{cfg.width // self._tp} columns a rank, not a multiple "
+                    f"of the UNet's {levels}-fold pooling")
         if variables is None and weights_path is not None:
             variables = read_msgpack(weights_path)
         if variables is None:
@@ -93,12 +120,29 @@ class Binarizer:
     def _mask(self, tiles: torch.Tensor) -> torch.Tensor:
         """(T, H, W, C) uint8 tiles on the device -> (T, H, W, 1) uint8
         masks in {0, 255}; a one-channel tile is repeated to the model's
-        channels."""
+        channels. Under the mesh ``tiles`` are this rank's tiles (and,
+        when the width is split, its columns of them), and so is the
+        result."""
         x = tiles.float() / 255.0
         if x.shape[-1] == 1 and self.config.channels != 1:
             x = x.repeat(1, 1, 1, self.config.channels)
-        probs = self.model(x)
+        with spmd(self.mesh, width=self._tp > 1):
+            probs = self.model(x)
         return torch.where(probs > self.config.bin_thr, 255, 0).to(torch.uint8)
+
+    def _sharded_mask(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`_mask` under the mesh: ``x`` this rank's rows of a tile
+        batch sharded on dp, whole tiles; this rank's columns of them
+        where the width is split, then every rank's masks gathered over tp
+        and dp (the whole batch, on every rank)."""
+        mesh = self.mesh
+        if self._tp > 1:
+            w = x.shape[2] // self._tp
+            x = x[:, :, mesh.tp_index * w:(mesh.tp_index + 1) * w]
+        m = self._mask(x.contiguous())
+        if self._tp > 1:
+            m = mesh.all_gather(m, "tp", dim=2)
+        return mesh.all_gather(m, "dp", dim=0)
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -107,11 +151,17 @@ class Binarizer:
     def binarize_tiles(self, tiles_u8: np.ndarray) -> np.ndarray:
         """(T, H, W, C) uint8 tiles -> (T, H, W, 1) uint8 masks in {0, 255}."""
         t = tiles_u8.shape[0]
-        tb = _round_up(t, self.config.batch_bucket)
-        x = torch.zeros((tb,) + tiles_u8.shape[1:], dtype=torch.uint8,
-                        device=self.device)
-        x[:t] = self._upload(tiles_u8)
-        return self._mask(x)[:t].cpu().numpy()
+        if self.mesh is None:
+            tb = _round_up(t, self.config.batch_bucket)
+            x = torch.zeros((tb,) + tiles_u8.shape[1:], dtype=torch.uint8,
+                            device=self.device)
+            x[:t] = self._upload(tiles_u8)
+            return self._mask(x)[:t].cpu().numpy()
+        tb = padded_batch(t, self.config.batch_bucket, self.mesh.shape["dp"])
+        x = np.zeros((tb,) + tiles_u8.shape[1:], np.uint8)
+        x[:t] = tiles_u8
+        local = self._upload(x[self.mesh.rows(tb)])
+        return self._sharded_mask(local)[:t].cpu().numpy()
 
     @torch.inference_mode()
     def _fused_batch(self, imgs_u8: np.ndarray, plan: TilePlan) -> torch.Tensor:
@@ -119,9 +169,22 @@ class Binarizer:
         uint8 masks bit-packed on the device, still there: device cut, the
         channel repeated on the device when C = 1, UNet, threshold, stitch,
         pack."""
-        tiles = cut_tiles(self._upload(imgs_u8), plan)
-        b, t = tiles.shape[:2]
-        mask = self._mask(tiles.flatten(0, 1)).unflatten(0, (b, t))
+        b = imgs_u8.shape[0]
+        if self.mesh is not None:
+            # The images padded to a multiple of dp, as the JAX package
+            # pads them; each rank cuts the tiles of its own.
+            bp = _round_up(b, self.mesh.shape["dp"])
+            rows = self.mesh.rows(bp)
+            x = np.zeros((bp,) + imgs_u8.shape[1:], np.uint8)
+            x[:b] = imgs_u8
+            tiles = cut_tiles(self._upload(x[rows]), plan)
+            t = tiles.shape[1]
+            mask = self._sharded_mask(tiles.flatten(0, 1)).unflatten(
+                0, (bp, t))[:b]
+        else:
+            tiles = cut_tiles(self._upload(imgs_u8), plan)
+            t = tiles.shape[1]
+            mask = self._mask(tiles.flatten(0, 1)).unflatten(0, (b, t))
         out = stitch_tiles(mask, plan)[..., 0] > 0           # (B, H, W)
         wp = _round_up(plan.img_width, 8)
         bits = torch.zeros(out.shape[:2] + (wp,), dtype=torch.int32,

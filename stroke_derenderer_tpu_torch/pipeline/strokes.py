@@ -21,6 +21,18 @@ activation scale spans the whole batch, so a row's features depend on the
 rows beside it: the port then pads the encoder's batch with the blank
 crops that the JAX package pads it with, to a multiple of
 ``glyph_bucket``, over the same chunks, and decodes the real rows only.
+
+With a ``mesh`` (``parallel.mesh``) every rank runs this same code on the
+same masks: the parameters are replicated, the glyph rows are dealt over
+the dp ranks (each rank builds the crops of its own rows, encodes them
+and decodes them with one K1 or K2 launch, and the tokens are gathered in
+order), and the batch is padded as the JAX package pads a sharded batch:
+to a multiple of dp, and under int8 to lcm(``glyph_bucket``, dp) with
+blank crops, the activation scale then spanning every rank's rows. The
+rows are dealt round-robin in order of decreasing ink, so that each rank
+gets as many long glyphs as the others; rows are independent (under int8
+the scale is the max over the whole padded batch, wherever its rows lie),
+so the deal changes no output.
 """
 
 from __future__ import annotations
@@ -31,9 +43,11 @@ import torch
 from stroke_derenderer_tpu_torch.config import StrokesConfig
 from stroke_derenderer_tpu_torch.data.synthetic import rasterize_strokes
 from stroke_derenderer_tpu_torch.device import dtype_of, resolve_device
-from stroke_derenderer_tpu_torch.kernels.fused_beam import fused_beam_decode
+from stroke_derenderer_tpu_torch.kernels.fused_beam import (
+    fused_beam_decode, fused_beam_decode_sharded,
+)
 from stroke_derenderer_tpu_torch.kernels.fused_decode import (
-    fused_greedy_decode,
+    fused_greedy_decode, fused_greedy_decode_sharded,
 )
 from stroke_derenderer_tpu_torch.models.decoder import AttentiveDecoder
 from stroke_derenderer_tpu_torch.models.encoder import (
@@ -51,6 +65,7 @@ from stroke_derenderer_tpu_torch.ops.strokes import (
     decode_tokens_batch, merge_stroke_fragments, refine_strokes,
     sort_strokes,
 )
+from stroke_derenderer_tpu_torch.parallel.mesh import padded_batch, spmd
 from stroke_derenderer_tpu_torch.weights import (
     from_flax_decoder, from_flax_encoder, from_flax_projection,
     init_projection, init_strokes, read_msgpack,
@@ -131,7 +146,7 @@ def compute_partitions(img_bin: np.ndarray, cfg: StrokesConfig) -> list[dict]:
 class StrokeEstimator:
     def __init__(self, config: StrokesConfig,
                  weights_paths: dict | None = None, device=None,
-                 variables: tuple | None = None):
+                 variables: tuple | None = None, mesh=None):
         """``weights_paths``: {"encoder": path, "decoder": path} to the
         networks' flax msgpack files, and "projection" to the projection
         head's where ``config.projection_dim`` > 0; ``variables``: the
@@ -139,12 +154,16 @@ class StrokeEstimator:
         instead, as an ONNX import gives them; with neither, random weights
         (``weights.init_strokes``, seed 0). ``config.encoder_norm`` is
         ``"group"`` or ``"batch"``; ``config.quant`` ``"int8"`` runs the
-        encoder's int8 conv stacks (``ops.quant``)."""
+        encoder's int8 conv stacks (``ops.quant``). ``mesh``: this rank's
+        ``parallel.mesh.Mesh``; the pipeline then runs on the mesh's device
+        (``device`` is not read)."""
         self.config = cfg = config
         if cfg.decode not in ("greedy", "beam"):
             raise ValueError(f"decode must be 'greedy' or 'beam', got "
                              f"{cfg.decode!r}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
         dtype = dtype_of(cfg.compute_dtype)
         if variables is None and weights_paths is not None:
             if cfg.projection_dim and "projection" not in weights_paths:
@@ -191,30 +210,76 @@ class StrokeEstimator:
 
     @torch.inference_mode()
     def _encode_and_decode(self, crops: torch.Tensor,
-                           max_length: int | None) -> torch.Tensor:
+                           max_length: int | None,
+                           batch: int | None = None) -> torch.Tensor:
         """(N, S, S) float32 crops in 0..255 on the device -> (N,
         max_length) int32 tokens there: normalization, encoder, projection
         head (where there is one), one K1 (greedy) or K2 (beam) call. Under
         int8 the encoder sees the batch padded with blank crops to a
         multiple of ``glyph_bucket`` (the JAX package's batch); only the N
-        real rows are decoded."""
+        real rows are decoded.
+
+        Under the mesh, ``crops`` are this rank's rows of a padded global
+        batch of ``batch`` rows (at most ``batch // dp``; under int8 the
+        encoder sees exactly that many, blank crops last), and the result
+        is the (batch, max_length) tokens of every rank, gathered over dp
+        (:func:`fused_greedy_decode_sharded`), PAD in the pad rows."""
         cfg = self.config
         n = crops.shape[0]
-        if cfg.quant != "none" and n % cfg.glyph_bucket:
-            pad = cfg.glyph_bucket - n % cfg.glyph_bucket
-            crops = torch.cat([crops, crops.new_zeros((pad,)
+        mesh = self.mesh if batch is not None else None
+        rows = n
+        if cfg.quant != "none":
+            rows = (batch // mesh.shape["dp"] if mesh is not None
+                    else -(-n // cfg.glyph_bucket) * cfg.glyph_bucket)
+        if rows > n:
+            crops = torch.cat([crops, crops.new_zeros((rows - n,)
                                                       + crops.shape[1:])])
-        images = self._normalize_raw(crops)
-        seq = encode_postprocess(self.encoder(images),
-                                 cfg.encode_image_size)[:n]
-        if self.projection is not None:
+        if rows == 0:  # a rank without rows of its own
+            seq = torch.zeros((0, cfg.encode_image_size ** 2,
+                               self.decoder.enc_att_w.shape[0]),
+                              device=self.device)
+        else:
+            with spmd(mesh):
+                images = self._normalize_raw(crops)
+                seq = encode_postprocess(self.encoder(images),
+                                         cfg.encode_image_size)[:n]
+        if self.projection is not None and n:
             seq = linear(seq.to(self.compute_dtype), self.projection)
         seq = seq.to(self.compute_dtype)
         max_length = max_length or cfg.max_length
+        if mesh is not None:
+            if cfg.decode == "beam":
+                return fused_beam_decode_sharded(
+                    self.decoder, seq, max_length, mesh, batch,
+                    cfg.beam_size, cfg.length_penalty)
+            return fused_greedy_decode_sharded(self.decoder, seq, max_length,
+                                               mesh, batch)
         if cfg.decode == "beam":
             return fused_beam_decode(self.decoder, seq, max_length,
                                      cfg.beam_size, cfg.length_penalty)
         return fused_greedy_decode(self.decoder, seq, max_length)
+
+    def _sharded_tokens(self, n: int, crops_of, max_length: int | None,
+                        order=None) -> torch.Tensor:
+        """The (n, max_length) tokens of n glyph rows under the mesh, on
+        the device: ``crops_of(idx)`` builds the crops of the rows ``idx``
+        (a numpy index array) on the device. The rows, in ``order``
+        (default their own), are dealt round-robin over the dp ranks; each
+        rank encodes and decodes its own, and the gathered tokens are put
+        back in row order."""
+        cfg = self.config
+        dp = self.mesh.shape["dp"]
+        order = np.arange(n) if order is None else np.asarray(order)
+        batch = padded_batch(n, cfg.glyph_bucket if cfg.quant != "none"
+                             else 1, dp)
+        local = batch // dp
+        tokens = self._encode_and_decode(
+            crops_of(order[self.mesh.dp_index::dp]), max_length, batch)
+        pos = np.empty(n, np.int64)
+        for k in range(dp):
+            rows = order[k::dp]
+            pos[rows] = k * local + np.arange(len(rows))
+        return tokens[torch.from_numpy(pos).to(tokens.device)]
 
     @torch.inference_mode()
     def estimate_tokens(self, plan: PartitionPlan,
@@ -223,9 +288,58 @@ class StrokeEstimator:
         coords = tuple(torch.from_numpy(np.ascontiguousarray(
             getattr(plan, k))).to(self.device)
             for k in PartitionPlan.COORD_KEYS)
-        crops = gather_crops(torch.from_numpy(plan.gid_img).to(self.device),
-                             coords)
-        return self._encode_and_decode(crops, max_length).cpu().numpy()
+        gid = torch.from_numpy(plan.gid_img).to(self.device)
+        if self.mesh is None:
+            return self._encode_and_decode(gather_crops(gid, coords),
+                                           max_length).cpu().numpy()
+
+        def crops_of(idx):  # the crops of groups ``idx`` of this image
+            ids = torch.from_numpy(idx).to(self.device)
+            return gather_crops_batched(gid[None], torch.zeros_like(ids),
+                                        ids, tuple(c[ids] for c in coords))
+
+        return self._sharded_tokens(len(plan.partitions), crops_of,
+                                    max_length).cpu().numpy()
+
+    def _plan_batch(self, imgs_bin):
+        """Plan a set of images for one crop gather: (plans, counts, rows)
+        with ``rows`` None when no image has glyphs, else the group-id
+        images stacked (padded with -1) under "gid" and, for every glyph
+        row in image order, its image ("img_idx"), its image-local id
+        ("local_id"), its ink and its ``PartitionPlan.COORD_KEYS``."""
+        cfg = self.config
+        masks = [np.asarray(m) for m in imgs_bin]
+        masks = [m[:, :, 0] if m.ndim == 3 else m for m in masks]
+        plans = [plan_partitions(m, cfg.margin, cfg.image_size)
+                 for m in masks]
+        counts = [len(p.partitions) if p else 0 for p in plans]
+        if sum(counts) == 0:
+            return plans, counts, None
+        gid_stack = np.full((len(masks), max(m.shape[0] for m in masks),
+                             max(m.shape[1] for m in masks)), -1, np.int16)
+        for i, (m, p) in enumerate(zip(masks, plans)):
+            if p is not None:
+                gid_stack[i, :m.shape[0], :m.shape[1]] = p.gid_img
+        live = [(i, p) for i, p in enumerate(plans) if p is not None]
+        rows = {"gid": gid_stack,
+                "img_idx": np.concatenate([np.full(counts[i], i, np.int32)
+                                           for i, _ in live]),
+                "local_id": np.concatenate([np.arange(counts[i],
+                                                      dtype=np.int32)
+                                            for i, _ in live]),
+                "ink": np.concatenate([p.ink for _, p in live])}
+        for k in PartitionPlan.COORD_KEYS:
+            rows[k] = np.concatenate([getattr(p, k) for _, p in live])
+        return plans, counts, rows
+
+    def _batch_crops(self, rows: dict, gid: torch.Tensor, idx):
+        """The crops of the glyph rows ``idx`` of :meth:`_plan_batch`'s
+        ``rows``, in one gather on the device (``gid`` its stack there)."""
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device)
+        return gather_crops_batched(
+            gid, up(rows["img_idx"][idx]), up(rows["local_id"][idx]),
+            tuple(up(rows[k][idx]) for k in PartitionPlan.COORD_KEYS))
 
     @torch.inference_mode()
     def _gather_batch(self, imgs_bin):
@@ -234,38 +348,16 @@ class StrokeEstimator:
         each glyph row's image and image-local id, the rows in order of
         decreasing ink (``perm``; ``inv`` undoes it). Returns (crops or
         None when no image has glyphs, inv, plans, counts)."""
-        cfg = self.config
-        masks = [np.asarray(m) for m in imgs_bin]
-        masks = [m[:, :, 0] if m.ndim == 3 else m for m in masks]
-        plans = [plan_partitions(m, cfg.margin, cfg.image_size)
-                 for m in masks]
-        counts = [len(p.partitions) if p else 0 for p in plans]
-        if sum(counts) == 0:
+        plans, counts, rows = self._plan_batch(imgs_bin)
+        if rows is None:
             return None, None, plans, counts
-        gid_stack = np.full((len(masks), max(m.shape[0] for m in masks),
-                             max(m.shape[1] for m in masks)), -1, np.int16)
-        for i, (m, p) in enumerate(zip(masks, plans)):
-            if p is not None:
-                gid_stack[i, :m.shape[0], :m.shape[1]] = p.gid_img
-        live = [(i, p) for i, p in enumerate(plans) if p is not None]
-        img_idx = np.concatenate([np.full(counts[i], i, np.int32)
-                                  for i, _ in live])
-        local_id = np.concatenate([np.arange(counts[i], dtype=np.int32)
-                                   for i, _ in live])
-        ink = np.concatenate([p.ink for _, p in live])
         # Rows by decreasing ink, as the JAX path orders them for its
         # kernel's per-block early exit; rows are independent, so the
         # order changes no output, and ``inv`` restores it.
-        perm = np.argsort(-ink, kind="stable")
+        perm = np.argsort(-rows["ink"], kind="stable")
         inv = np.argsort(perm)
-        coords = tuple(
-            torch.from_numpy(np.concatenate(
-                [getattr(p, k) for _, p in live])[perm]).to(self.device)
-            for k in PartitionPlan.COORD_KEYS)
-        up = lambda a: torch.from_numpy(a).to(self.device)
-        crops = gather_crops_batched(up(gid_stack), up(img_idx[perm]),
-                                     up(local_id[perm]), coords)
-        return crops, inv, plans, counts
+        gid = torch.from_numpy(rows["gid"]).to(self.device)
+        return self._batch_crops(rows, gid, perm), inv, plans, counts
 
     def process_tokens(self, tokens: np.ndarray, partitions: list[dict]):
         """Token matrix + partition transforms -> globally sorted strokes."""
@@ -282,16 +374,27 @@ class StrokeEstimator:
 
     def _host_crops(self, partitions: list[dict]) -> torch.Tensor:
         """The host partitions' uint8 crops on the device as float32."""
+        if not partitions:
+            s = self.config.image_size
+            return torch.zeros((0, s, s), device=self.device)
         crops = np.stack([p["image"] for p in partitions]).astype(np.uint8)
         return torch.from_numpy(crops).to(self.device).float()
+
+    def _host_tokens(self, partitions: list[dict], max_length):
+        """Tokens of the host partitions' crops, on the device."""
+        if self.mesh is not None:
+            return self._sharded_tokens(
+                len(partitions), lambda idx: self._host_crops(
+                    [partitions[i] for i in idx]), max_length)
+        return self._encode_and_decode(self._host_crops(partitions),
+                                       max_length)
 
     def _process_image_once(self, img_bin, max_length: int | None):
         if not self.config.device_partition:
             partitions = compute_partitions(img_bin, self.config)
             if not partitions:
                 return []
-            preds = self._encode_and_decode(self._host_crops(partitions),
-                                            max_length)
+            preds = self._host_tokens(partitions, max_length)
             return self.process_tokens(preds.cpu().numpy(), partitions)
         plan = plan_partitions(np.asarray(img_bin), self.config.margin,
                                self.config.image_size)
@@ -311,6 +414,10 @@ class StrokeEstimator:
         nch = max(1, -(-len(imgs_bin) // self.config.io_chunks))
         pending = []
         for c0 in range(0, len(imgs_bin), nch):
+            if self.mesh is not None:
+                pending.append(self._dispatch_sharded(imgs_bin[c0:c0 + nch],
+                                                      max_length))
+                continue
             crops, inv, plans, counts = self._gather_batch(
                 imgs_bin[c0:c0 + nch])
             preds = None if crops is None else self._encode_and_decode(
@@ -319,13 +426,27 @@ class StrokeEstimator:
         out = []
         for preds, inv, plans, counts in pending:
             if preds is not None:
-                preds = preds.cpu().numpy()[inv]
+                preds = preds.cpu().numpy()
+                preds = preds if inv is None else preds[inv]
             ofs = 0
             for p, n in zip(plans, counts):
                 out.append(self.process_tokens(preds[ofs:ofs + n],
                                                p.partitions) if n else [])
                 ofs += n
         return out
+
+    def _dispatch_sharded(self, imgs_bin, max_length: int | None):
+        """One chunk of :meth:`_process_images_once` under the mesh: (tokens
+        in image order or None, None, plans, counts), the rows dealt in
+        order of decreasing ink."""
+        plans, counts, rows = self._plan_batch(imgs_bin)
+        if rows is None:
+            return None, None, plans, counts
+        gid = torch.from_numpy(rows["gid"]).to(self.device)
+        preds = self._sharded_tokens(
+            sum(counts), lambda idx: self._batch_crops(rows, gid, idx),
+            max_length, np.argsort(-rows["ink"], kind="stable"))
+        return preds, None, plans, counts
 
     def _process_images_host(self, imgs_bin, max_length: int | None):
         """:meth:`_process_images_once` on the host partitions: every
@@ -335,9 +456,8 @@ class StrokeEstimator:
         counts = [len(p) for p in all_parts]
         if sum(counts) == 0:
             return [[] for _ in imgs_bin]
-        preds = self._encode_and_decode(
-            self._host_crops([p for parts in all_parts for p in parts]),
-            max_length).cpu().numpy()
+        preds = self._host_tokens([p for parts in all_parts for p in parts],
+                                  max_length).cpu().numpy()
         out, ofs = [], 0
         for parts, n in zip(all_parts, counts):
             out.append(self.process_tokens(preds[ofs:ofs + n], parts)

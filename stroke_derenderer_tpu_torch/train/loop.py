@@ -12,8 +12,23 @@ params, optax-layout optimizer state, the EMA shadow as
 ``<out>``, so the CLI of either package loads the result and either
 package's trainer resumes the other's checkpoints. A run resumes from the
 newest checkpoint in ``<out>``. Runs on the card unless ``--device cpu`` is
-given. ``--mesh N > 1``, ``--tp K > 1`` and ``--distributed`` raise
-(ROADMAP.md item 13).
+given.
+
+``--mesh N`` trains data-parallel over N ranks, one process each
+(``parallel.multihost.spawn``; ``cuda:0`` .. ``cuda:N-1``, sharing the
+cards round-robin when there are fewer, or the CPU with ``--device cpu``):
+the mesh's first rank draws each global batch of ``--batch`` rows and every
+rank keeps its dp rows, as the JAX package shards one global batch.
+``--distributed`` joins a process group from the ``SD_COORDINATOR`` /
+``SD_NUM_PROCESSES`` / ``SD_PROCESS_ID`` environment
+(``parallel.multihost.initialize``); each process draws its own ``--batch``
+rows from its own data seed (``fold_in_process``), while the model starts
+from the unfolded ``--seed`` on every rank. Either way the gradients are
+the whole batch's (``train/steps.py``), every rank makes the same update,
+and rank 0 alone writes the checkpoints and the export. ``--tp K`` lays
+the conv kernels and the decoder's ``enc_att`` out column-parallel over
+groups of K ranks (``parallel.mesh.shard_columns``), the JAX package's
+tensor-parallel layout; checkpoints and exports gather them whole.
 """
 
 from __future__ import annotations
@@ -22,17 +37,23 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import time
 from pathlib import Path
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from stroke_derenderer_tpu_torch.config import BinarizerConfig, StrokesConfig
 from stroke_derenderer_tpu_torch.data.loader import PrefetchLoader
 from stroke_derenderer_tpu_torch.device import resolve_device
 from stroke_derenderer_tpu_torch.models.encoder import ARCHS
+from stroke_derenderer_tpu_torch.parallel import multihost
+from stroke_derenderer_tpu_torch.parallel.mesh import (
+    make_mesh, shard_columns,
+)
 from stroke_derenderer_tpu_torch.train.checkpoint import (
     latest_checkpoint, load_opt_state, opt_state_tree, restore_checkpoint,
     save_checkpoint,
@@ -49,9 +70,6 @@ from stroke_derenderer_tpu_torch.weights import (
 
 log = logging.getLogger("train")
 
-MESH_ITEM = "ROADMAP.md item 13"
-
-
 @dataclasses.dataclass
 class TrainResult:
     """What a run did: the exported parameters (the EMA shadow when on),
@@ -66,9 +84,38 @@ class TrainResult:
 
 @dataclasses.dataclass
 class _Layout:
-    """Maps between a module's ``state_dict`` names and the flax tree."""
+    """Maps between a module's ``state_dict`` names and the flax tree.
+    ``whole`` turns a dict named like the state dict into whole tensors
+    (identity unless :func:`_tp_layout` sharded the module); a layout whose
+    maps are ``collective`` runs them on every rank."""
     to_tree: Callable[[dict], dict]
     from_tree: Callable[[dict], dict]
+    whole: Callable[[dict], dict] = lambda sd: sd
+    collective: bool = False
+
+
+def _tp_layout(layout: _Layout, module, mesh) -> _Layout:
+    """``layout`` for ``module`` laid out column-parallel on the mesh's tp
+    group (``parallel.mesh.shard_columns``): trees hold whole tensors,
+    gathered over tp on the way out and cut to this rank's slice on the
+    way in, so that checkpoints and exports are those of one device."""
+    sharded = shard_columns(module, mesh) if mesh is not None else {}
+    if not sharded:
+        return layout
+    k, tp = mesh.tp_index, mesh.shape["tp"]
+
+    def whole(sd):
+        return {n: (mesh.all_gather(t, "tp", dim=sharded[n][0])
+                    if n in sharded and t.shape[sharded[n][0]]
+                    != sharded[n][1] else t) for n, t in sd.items()}
+
+    def local(sd):
+        return {n: (t.narrow(sharded[n][0], k * (sharded[n][1] // tp),
+                             sharded[n][1] // tp) if n in sharded else t)
+                for n, t in sd.items()}
+
+    return _Layout(lambda sd: layout.to_tree(whole(sd)),
+                   lambda tree: local(layout.from_tree(tree)), whole, True)
 
 
 def _unet_layout(config: BinarizerConfig) -> _Layout:
@@ -241,13 +288,55 @@ def _resume(module, optimizer, layout: _Layout, ckpt_dir: Path,
     return step, (layout.from_tree(ema) if ema is not None else None)
 
 
+class _MeshBatches:
+    """The batches of a run over a mesh: with ``per_rank`` (``--distributed``)
+    the first rank of each tp group draws its group's batch and sends it to
+    the others, as the ranks of one tp group compute on the same rows;
+    else the mesh's first rank draws each global batch and sends it to
+    every rank, and each keeps the rows of its dp index. Over gloo."""
+
+    def __init__(self, make_loader, mesh, per_rank: bool):
+        self.mesh, self.per_rank = mesh, per_rank
+        self.axis = "tp_host" if per_rank else "host"
+        first = (mesh.tp_index == 0 if per_rank
+                 else mesh.rank == int(mesh.ranks.ravel()[0]))
+        self.loader = make_loader() if first else None
+
+    def __iter__(self):
+        it = iter(self.loader) if self.loader is not None else None
+        while True:
+            batch = self.mesh.broadcast_object(
+                next(it, None) if it is not None else None, self.axis)
+            if batch is None:
+                return
+            yield batch if self.per_rank else tuple(
+                np.asarray(a)[self.mesh.rows(len(a))] for a in batch)
+
+    def close(self):
+        if self.loader is not None:
+            self.loader.close()
+
+
+def _data(make, num_workers: int, mesh, per_rank: bool):
+    """The loader of a run: whole batches on one device, and per process
+    under ``--distributed`` (``per_rank``) without tp; else
+    :class:`_MeshBatches`."""
+    loader = lambda: PrefetchLoader(make, num_workers=num_workers)
+    if mesh is None or mesh.size == 1 or (per_rank
+                                          and mesh.shape["tp"] == 1):
+        return loader()
+    return _MeshBatches(loader, mesh, per_rank)
+
+
 def _run(name: str, module, optimizer, layout: _Layout, step_fn, data,
          steps: int, start_step: int, ema: _Ema | None, ckpt_dir: Path,
-         ckpt_every: int, ckpt_keep: int, log_every: int) -> TrainResult:
+         ckpt_every: int, ckpt_keep: int, log_every: int,
+         writer: bool = True) -> TrainResult:
     """The steps from ``start_step`` to ``steps``: a batch from the loader,
     one update, the EMA, the log line every ``log_every`` steps and a
-    checkpoint every ``ckpt_every`` steps and at the end. Each step's loss
-    is read back, so the step's seconds include its device time."""
+    checkpoint every ``ckpt_every`` steps and at the end (only where
+    ``writer``: the rank that writes). Each step's loss is read back, so
+    the step's seconds include its device time."""
     losses, wait_s, step_s = [], 0.0, 0.0
     t_log = time.time()
     it = iter(data)
@@ -268,14 +357,15 @@ def _run(name: str, module, optimizer, layout: _Layout, step_fn, data,
                          losses[-1], log_every / max(time.time() - t_log,
                                                      1e-9))
                 t_log = time.time()
-            if (i + 1) % ckpt_every == 0 or i + 1 == steps:
+            if (writer or layout.collective) and (
+                    (i + 1) % ckpt_every == 0 or i + 1 == steps):
                 extras = ({"ema": layout.to_tree(ema.params)}
                           if ema is not None else None)
-                save_checkpoint(ckpt_dir, i + 1,
-                                layout.to_tree(module.state_dict()),
-                                opt_state_tree(optimizer, module,
-                                               layout.to_tree),
-                                extras=extras, keep_last=ckpt_keep)
+                params = layout.to_tree(module.state_dict())
+                opt = opt_state_tree(optimizer, module, layout.to_tree)
+                if writer:
+                    save_checkpoint(ckpt_dir, i + 1, params, opt,
+                                    extras=extras, keep_last=ckpt_keep)
     finally:
         data.close()
     if ema is not None:
@@ -283,15 +373,15 @@ def _run(name: str, module, optimizer, layout: _Layout, step_fn, data,
         exported = ema.params
     else:
         exported = module.state_dict()
-    return TrainResult(exported, losses, start_step, wait_s, step_s)
+    return TrainResult(layout.whole(exported), losses, start_step, wait_s,
+                       step_s)
 
 
-def _check_single_device(mesh: int = 0, tp: int = 1,
-                         distributed: bool = False) -> None:
-    if distributed or (mesh and mesh > 1) or tp > 1:
-        raise NotImplementedError(
-            f"--mesh/--tp/--distributed training is not ported yet "
-            f"({MESH_ITEM})")
+def _placement(mesh, device):
+    """(device, mesh or None, whether this rank writes)."""
+    if mesh is None:
+        return resolve_device(device), None, True
+    return resolve_device(mesh.device), mesh, mesh.rank == 0
 
 
 def _check_trainable(bin_config: BinarizerConfig | None = None,
@@ -310,18 +400,25 @@ def _check_trainable(bin_config: BinarizerConfig | None = None,
 def train_binarizer(config: BinarizerConfig, steps: int, batch_size: int,
                     out_dir: str | Path, lr: float = 3e-4, seed: int = 0,
                     ckpt_every: int = 200, ckpt_keep: int = 0,
-                    log_every: int = 25, mesh: int = 0,
+                    log_every: int = 25, mesh=None,
                     data_dir: str | Path | None = None,
                     line_style: str = "mixed", ruled: float = 0.0,
                     narrow: float = 0.0,
                     init_from: str | Path | None = None,
                     ema_decay: float = 0.0, device=None,
-                    num_workers: int = 2) -> TrainResult:
+                    num_workers: int = 2,
+                    per_rank_data: bool = False,
+                    data_seed: int | None = None) -> TrainResult:
     """Train the attention-UNet on synthetic lines (or ``data_dir``'s real
-    pairs) and export it into ``out_dir``."""
-    _check_single_device(mesh)
+    pairs) and export it into ``out_dir``. ``mesh``: this rank's
+    data-parallel ``parallel.mesh.Mesh`` (the run then takes its device);
+    ``per_rank_data``: each rank draws its own ``batch_size`` rows (from
+    its own ``data_seed``) instead of its rows of one global batch. The
+    model starts from ``seed``, so every rank starts from the same
+    weights; the data comes from ``data_seed`` (default ``seed``)."""
     _check_trainable(bin_config=config)
-    device = resolve_device(device)
+    device, mesh, writer = _placement(mesh, device)
+    data_seed = seed if data_seed is None else data_seed
     model = init_binarizer(config, seed)
     layout = _unet_layout(config)
     if init_from is not None:
@@ -329,6 +426,7 @@ def train_binarizer(config: BinarizerConfig, steps: int, batch_size: int,
             Path(init_from) / "binarizer.msgpack")["params"]))
         log.info("warm-started binarizer from %s", init_from)
     model.to(device).train()
+    layout = _tp_layout(layout, model, mesh)
     optimizer = make_optimizer(model)
     ckpt_dir = Path(out_dir) / "ckpt_binarizer"
     start_step, ema_restored = _resume(model, optimizer, layout, ckpt_dir,
@@ -336,7 +434,7 @@ def train_binarizer(config: BinarizerConfig, steps: int, batch_size: int,
     ema = (_Ema(ema_decay, model, ema_restored) if ema_decay > 0.0
            else None)
     update = make_binarizer_train_step(model, optimizer,
-                                       lambda c: lr_at(c, lr, steps))
+                                       lambda c: lr_at(c, lr, steps), mesh)
 
     def step_fn(batch, i):
         tiles, masks = batch
@@ -346,20 +444,23 @@ def train_binarizer(config: BinarizerConfig, steps: int, batch_size: int,
     if data_dir is not None:
         from stroke_derenderer_tpu_torch.data.real import real_tile_batches
         make = lambda w: real_tile_batches(
-            data_dir, np.random.default_rng(seed + w), batch_size,
+            data_dir, np.random.default_rng(data_seed + w), batch_size,
             config.height, config.width, config=config)
     else:
         from stroke_derenderer_tpu_torch.data.synthetic import tile_batches
-        make = lambda w: tile_batches(np.random.default_rng(seed + w),
+        make = lambda w: tile_batches(np.random.default_rng(data_seed + w),
                                       batch_size, config.height, config.width,
                                       style=line_style, ruled=ruled,
                                       narrow=narrow)
     result = _run("binarizer", model, optimizer, layout, step_fn,
-                  PrefetchLoader(make, num_workers=num_workers), steps,
+                  _data(make, num_workers, mesh, per_rank_data), steps,
                   start_step, ema, ckpt_dir, ckpt_every, ckpt_keep,
-                  log_every)
-    save_model_files(out_dir, layout.to_tree(result.exported), config)
-    log.info("binarizer exported to %s", out_dir)
+                  log_every, writer)
+    if writer:  # result.exported holds whole tensors
+        save_model_files(out_dir, layout.to_tree(result.exported), config)
+        log.info("binarizer exported to %s", out_dir)
+    if mesh is not None:
+        mesh.barrier()
     return result
 
 
@@ -418,17 +519,21 @@ def train_captioner(config: StrokesConfig, steps: int, batch_size: int,
                     init_from: str | Path | None = None,
                     init_partial: str | Path | None = None,
                     coord_sigma: float = 0.0, sample_prob: float = 0.0,
-                    glyph_style: str = "mixed", mesh: int = 0,
+                    glyph_style: str = "mixed", mesh=None,
                     data_dir: str | Path | None = None,
                     cache_dir: str | Path | None = None,
                     ema_decay: float = 0.0, ss_ramp_frac: float = 1.0,
                     real_frac: float = 0.5, device=None,
-                    num_workers: int = 2) -> TrainResult:
+                    num_workers: int = 2,
+                    per_rank_data: bool = False,
+                    data_seed: int | None = None) -> TrainResult:
     """Train the ResNet encoder and the attentive decoder on glyph crops and
-    export them into ``out_dir``."""
-    _check_single_device(mesh)
+    export them into ``out_dir``. ``mesh``, ``per_rank_data`` and
+    ``data_seed`` as in :func:`train_binarizer`; scheduled sampling draws
+    its mask over the whole batch from ``seed``."""
     _check_trainable(se_config=config)
-    device = resolve_device(device)
+    device, mesh, writer = _placement(mesh, device)
+    data_seed = seed if data_seed is None else data_seed
     encoder, decoder = init_strokes(config, seed)
     captioner = Captioner(encoder, decoder)
     layout = _captioner_layout(config)
@@ -445,6 +550,7 @@ def train_captioner(config: StrokesConfig, steps: int, batch_size: int,
             config.encoder_arch)))
     decoder.requires_grad_(True)
     captioner.to(device).train()
+    layout = _tp_layout(layout, captioner, mesh)
     optimizer = make_optimizer(captioner)
     ckpt_dir = Path(out_dir) / "ckpt_captioner"
     start_step, ema_restored = _resume(captioner, optimizer, layout,
@@ -457,23 +563,27 @@ def train_captioner(config: StrokesConfig, steps: int, batch_size: int,
         enc_image_size=config.encode_image_size, coord_sigma=coord_sigma,
         sample_prob=sample_prob, total_steps=steps,
         ss_ramp_frac=ss_ramp_frac, normalize_on_device=raw,
-        mean=config.mean, std=config.std, seed=seed)
+        mean=config.mean, std=config.std, seed=seed, mesh=mesh)
 
     def step_fn(batch, i):
         crops, tok_in, tok_out = (torch.from_numpy(np.ascontiguousarray(a))
                                   .to(device) for a in batch)
         return update(crops, tok_in.long(), tok_out.long(), step_idx=i)
 
-    make = _captioner_data(config, batch_size, seed, seq_len, glyph_mode,
-                           glyph_style, data_dir, cache_dir, real_frac)
+    make = _captioner_data(config, batch_size, data_seed, seq_len,
+                           glyph_mode, glyph_style, data_dir, cache_dir,
+                           real_frac)
     result = _run("captioner", captioner, optimizer, layout, step_fn,
-                  PrefetchLoader(make, num_workers=num_workers), steps,
+                  _data(make, num_workers, mesh, per_rank_data), steps,
                   start_step, ema, ckpt_dir, ckpt_every, ckpt_keep,
-                  log_every)
-    tree = layout.to_tree(result.exported)
-    save_model_files(out_dir, encoder_tree=tree["encoder"],
-                     decoder_tree=tree["decoder"], strokes_config=config)
-    log.info("captioner exported to %s", out_dir)
+                  log_every, writer)
+    if writer:
+        tree = layout.to_tree(result.exported)
+        save_model_files(out_dir, encoder_tree=tree["encoder"],
+                         decoder_tree=tree["decoder"], strokes_config=config)
+        log.info("captioner exported to %s", out_dir)
+    if mesh is not None:
+        mesh.barrier()
     return result
 
 
@@ -549,25 +659,69 @@ def parse_args(argv=None):
                     help="probability a binarizer training line renders on "
                          "ruled colored paper")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help=f"multi-device training: not ported ({MESH_ITEM}); "
-                         "0/1 = single device")
+                    help="data-parallel training over N ranks, one process "
+                         "each (parallel/mesh.py): the global batch of "
+                         "--batch rows sharded on dp, the gradients summed "
+                         "over dp. 0/1 = single device.")
     ap.add_argument("--tp", type=int, default=1,
-                    help=f"tensor-parallel extent: not ported ({MESH_ITEM})")
+                    help="tensor-parallel extent within --mesh or "
+                         "--distributed: conv kernels and enc_att "
+                         "column-parallel over tp ranks (default 1)")
     ap.add_argument("--ckpt-every", type=int, default=200,
                     help="checkpoint cadence in steps (default 200)")
     ap.add_argument("--ckpt-keep", type=int, default=0, metavar="K",
                     help="prune all but the newest K checkpoints "
                          "(0 = keep everything)")
     ap.add_argument("--distributed", action="store_true",
-                    help=f"multi-host training: not ported ({MESH_ITEM})")
+                    help="multi-process training: join the process group "
+                         "(parallel.multihost.initialize, from the "
+                         "SD_COORDINATOR/SD_NUM_PROCESSES/SD_PROCESS_ID "
+                         "environment), build the ('dp', 'tp') mesh over "
+                         "every rank and draw per-process batches: --batch "
+                         "is the PER-PROCESS batch size; each process draws "
+                         "a distinct data stream.")
     return ap.parse_args(argv)
+
+
+def _train_rank(argv, num_workers: int) -> dict:
+    """One rank of ``--mesh``: :func:`train` in the rank's process group;
+    rank 0 logs. The results come back with their tensors on the CPU."""
+    if dist.get_rank() == 0 and not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO,
+                            format="%(asctime)s %(levelname).1s %(name)s: "
+                                   "%(message)s", datefmt="%H:%M:%S")
+        log.setLevel(logging.INFO)
+    out = train(argv, num_workers)
+    return {k: dataclasses.replace(r, exported={
+        n: t.detach().cpu() for n, t in r.exported.items()})
+        for k, r in out.items()}
 
 
 def train(argv=None, num_workers: int = 2) -> dict:
     """Run the command line's training and return {"binarizer" and/or
-    "captioner": :class:`TrainResult`}."""
+    "captioner": :class:`TrainResult`} (under ``--mesh``, rank 0's)."""
     args = parse_args(argv)
-    _check_single_device(args.mesh, args.tp, args.distributed)
+    mesh, data_seed, per_rank = None, args.seed, False
+    if args.distributed:
+        multihost.initialize(kind=args.device)
+        mesh = multihost.global_mesh(tp=args.tp)
+        data_seed = multihost.fold_in_process(args.seed, mesh.dp_index)
+        per_rank = True
+        log.info("distributed: process %d/%d, global (%d, %d) dp/tp mesh",
+                 multihost.process_index(), multihost.process_count(),
+                 mesh.shape["dp"], mesh.shape["tp"])
+    elif args.mesh and args.mesh > 1:
+        if not dist.is_initialized():
+            cpu = torch.device(args.device).type != "cuda"
+            return multihost.spawn(
+                _train_rank, args.mesh,
+                multihost.rank_devices(args.device, args.mesh),
+                args=(argv, num_workers), threads=max(
+                    1, (os.cpu_count() or 1) // args.mesh) if cpu else None,
+                timeout_s=24 * 3600.0)[0]
+        mesh = make_mesh(args.mesh, tp=args.tp)
+        log.info("training on a (%d, %d) dp/tp mesh", mesh.shape["dp"],
+                 mesh.shape["tp"])
     bin_kw = {}
     if args.bin_features:
         feats = tuple(int(x) for x in args.bin_features.split(","))
@@ -588,7 +742,8 @@ def train(argv=None, num_workers: int = 2) -> dict:
     if args.model in ("binarizer", "both"):
         results["binarizer"] = train_binarizer(
             BinarizerConfig.from_json(bin_cfg_json, **bin_kw), args.steps,
-            args.batch, args.out, args.lr, args.seed, data_dir=args.data,
+            args.batch, args.out, args.lr, args.seed, mesh=mesh,
+            per_rank_data=per_rank, data_seed=data_seed, data_dir=args.data,
             line_style=args.line_style, ruled=args.ruled,
             narrow=args.narrow, init_from=args.init_from,
             ema_decay=args.ema, ckpt_every=args.ckpt_every,
@@ -598,6 +753,7 @@ def train(argv=None, num_workers: int = 2) -> dict:
         results["captioner"] = train_captioner(
             StrokesConfig.from_json(se_cfg_json, **se_kw), args.steps,
             args.batch, args.out, args.lr, args.seed, seq_len=args.seq_len,
+            mesh=mesh, per_rank_data=per_rank, data_seed=data_seed,
             init_from=args.init_from, init_partial=args.init_partial,
             coord_sigma=args.coord_smoothing,
             sample_prob=args.scheduled_sampling,

@@ -36,10 +36,14 @@ def binarize_loss(probs: torch.Tensor, target: torch.Tensor,
 
 
 def caption_loss(logits: torch.Tensor, targets: torch.Tensor,
-                 coord_sigma: float = 0.0) -> torch.Tensor:
+                 coord_sigma: float = 0.0,
+                 count: torch.Tensor | None = None) -> torch.Tensor:
     """Teacher-forced cross-entropy of (B, T, V) logits against (B, T)
     next-token targets, averaged over the positions whose target is not
-    PAD.
+    PAD. ``count`` replaces this batch's count of such positions as the
+    divisor: a data-parallel shard divides its sum by the count of the
+    whole batch, so that the shards' losses (and gradients) sum to the
+    whole batch's.
 
     ``coord_sigma`` > 0 spreads a vertex target's mass as a Gaussian over
     the neighbouring coordinates within its own axis range (token 3 + v is
@@ -48,10 +52,11 @@ def caption_loss(logits: torch.Tensor, targets: torch.Tensor,
     logits = logits.float()
     targets = targets.long()
     mask = (targets != PAD).float()
+    denom = (mask.sum() if count is None else count).clamp(min=1.0)
     if coord_sigma <= 0.0:
         ce = torch.logsumexp(logits, dim=-1) - logits.gather(
             -1, targets[..., None])[..., 0]
-        return (ce * mask).sum() / mask.sum().clamp(min=1.0)
+        return (ce * mask).sum() / denom
 
     v = logits.shape[-1]
     s = (v - 3) // 2
@@ -68,4 +73,4 @@ def caption_loss(logits: torch.Tensor, targets: torch.Tensor,
     tok = (targets[..., None] + ds).clamp(0, v - 1)
     lp = torch.log_softmax(logits, dim=-1).gather(-1, tok)
     ce = -(w * lp).sum(dim=-1)
-    return (ce * mask).sum() / mask.sum().clamp(min=1.0)
+    return (ce * mask).sum() / denom

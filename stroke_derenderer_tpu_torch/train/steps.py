@@ -11,8 +11,15 @@ weight decay 1e-4 on every parameter) and the learning rate of update
 ``warmup_cosine_decay_schedule(0, lr, min(100, steps // 10 + 1), steps)``
 in float32, so the first update moves nothing.
 
-``make_sharded_train_step`` (the JAX package's multi-device step) is
-ROADMAP.md item 13.
+With a ``mesh`` (``parallel.mesh``, data parallel) each rank takes its
+rows of the batch and the gradients are summed over the dp group before
+the update, so that every rank makes the update of the whole batch, as
+GSPMD gives the JAX package's sharded step: the binarizer's loss is a mean
+over equal shards, so its gradients are summed and divided by dp; the
+captioner's divides by the count of real tokens, which differs between
+shards, so each shard divides its sum by the count of the whole batch and
+the gradients are summed as they are. AdamW then runs the same on every
+rank. The step returns the whole batch's loss.
 """
 
 from __future__ import annotations
@@ -75,13 +82,37 @@ def update_count(optimizer: torch.optim.Optimizer) -> int:
     return 0
 
 
+def sum_gradients(module: nn.Module, mesh, divide: bool) -> None:
+    """Sum every gradient of ``module`` over the mesh's dp group (divided
+    by dp with ``divide``), in one collective on a flat buffer."""
+    grads = [p.grad for p in module.parameters() if p.grad is not None]
+    flat = mesh.all_sum(torch.cat([g.reshape(-1) for g in grads]), "dp")
+    if divide:
+        flat = flat / mesh.shape["dp"]
+    ofs = 0
+    for g in grads:
+        g.copy_(flat[ofs:ofs + g.numel()].view_as(g))
+        ofs += g.numel()
+
+
 def _make_update(module: nn.Module, loss_fn: Callable,
                  optimizer: torch.optim.Optimizer,
-                 schedule: Callable[[int], float]):
+                 schedule: Callable[[int], float], mesh=None,
+                 mean_of_shards: bool = True):
+    """The update step; under a data-parallel ``mesh`` the gradients and
+    the loss are summed over dp, and divided by dp where the loss is the
+    mean of equal shards' (``mean_of_shards``)."""
+    dp = mesh.shape["dp"] if mesh is not None else 1
+
     def update(*batch, **kw):
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(*batch, **kw)
         loss.backward()
+        if dp > 1:
+            sum_gradients(module, mesh, mean_of_shards)
+            loss = mesh.all_sum(loss.detach(), "dp")
+            if mean_of_shards:
+                loss = loss / dp
         lr = schedule(update_count(optimizer))
         for group in optimizer.param_groups:
             group["lr"] = lr
@@ -103,11 +134,12 @@ def device_normalize_u8(crops_u8: torch.Tensor, mean, std) -> torch.Tensor:
 
 def make_binarizer_train_step(model: nn.Module,
                               optimizer: torch.optim.Optimizer,
-                              schedule: Callable[[int], float]):
+                              schedule: Callable[[int], float], mesh=None):
     """``step(tiles, masks) -> loss``: tiles (B, H, W, C) float in [0, 1],
-    masks (B, H, W, 1) float {0, 1}, on the model's device."""
+    masks (B, H, W, 1) float {0, 1}, on the model's device (under a
+    ``mesh``, this rank's rows)."""
     return _make_update(model, lambda tiles, masks: binarize_loss(
-        model(tiles), masks), optimizer, schedule)
+        model(tiles), masks), optimizer, schedule, mesh)
 
 
 def scheduled_sampling_mask(shape, step: int, sample_prob: float,
@@ -144,11 +176,14 @@ def make_captioner_train_step(captioner: Captioner,
                               total_steps: int = 0,
                               ss_ramp_frac: float = 1.0,
                               normalize_on_device: bool = False,
-                              mean=None, std=None, seed: int = 0):
+                              mean=None, std=None, seed: int = 0,
+                              mesh=None):
     """``step(images, tokens_in, tokens_out, step_idx=None, take=None) ->
     loss``. Teacher forcing: ``tokens_in`` are the targets shifted right.
     ``images`` are normalized (B, S, S, 3) float32 crops, or (B, S, S)
-    uint8 crops with ``normalize_on_device``.
+    uint8 crops with ``normalize_on_device``. Under a ``mesh`` the inputs
+    are this rank's rows, and the default ``take`` is this rank's rows of
+    the whole batch's.
 
     ``sample_prob`` > 0 turns on scheduled sampling: a first teacher-forced
     pass without gradients gives the model's own predictions, and each
@@ -170,12 +205,21 @@ def make_captioner_train_step(captioner: Captioner,
                     tokens_in.dtype)
             prev_pred = torch.cat([tokens_in[:, :1], preds[:, :-1]], dim=1)
             if take is None:
+                b = tokens_in.shape[0]
                 take = scheduled_sampling_mask(
-                    tokens_in.shape, int(step_idx), sample_prob, total_steps,
-                    ss_ramp_frac, seed, tokens_in.device)
+                    (b * dp,) + tokens_in.shape[1:], int(step_idx),
+                    sample_prob, total_steps, ss_ramp_frac, seed,
+                    tokens_in.device)
+                if dp > 1:
+                    take = take[mesh.rows(b * dp)]
             tokens_in = torch.where(take & (tokens_in != PAD), prev_pred,
                                     tokens_in)
+        count = None
+        if dp > 1:
+            count = mesh.all_sum((tokens_out != PAD).sum().float(), "dp")
         return caption_loss(decoder(seq, tokens_in), tokens_out,
-                            coord_sigma=coord_sigma)
+                            coord_sigma=coord_sigma, count=count)
 
-    return _make_update(captioner, loss_fn, optimizer, schedule)
+    dp = mesh.shape["dp"] if mesh is not None else 1
+    return _make_update(captioner, loss_fn, optimizer, schedule, mesh,
+                        mean_of_shards=False)

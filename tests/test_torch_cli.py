@@ -87,7 +87,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 for name in ("kernels.fused_beam", "kernels.decode_attention", "serve",
-             "ops.quant", "parallel", "parallel.two_stage",
+             "ops.quant", "parallel", "parallel.two_stage", "parallel.mesh",
+             "parallel.multihost",
              "eval.run", "eval.metrics", "data.real", "data.synthetic",
              "data.letters", "data.cache", "data.loader", "train.loop",
              "train.steps", "train.losses", "train.checkpoint"):
@@ -116,6 +117,8 @@ assert train_main(["--device", "cpu", "--model", "both", "--steps", "2",
                    "--batch", "1", "--bin-features", "8", "--encoder-arch",
                    "tiny", "--se-dims", "16,16,16", "--seq-len", "12",
                    "--out", out + "_t"], num_workers=1) == 0
+assert entrypoint(["-models", models, "-input", inp, "--output",
+                   out + "_mesh", "--device", "cpu", "--mesh", "2"]) == 0
 assert entrypoint(["--init-models", out + "_m"]) == 0
 assert entrypoint(["-models", models, "--export-onnx", out + "_x"]) == 0
 assert entrypoint(["-models", out + "_x", "-input", inp, "--output",
@@ -134,7 +137,8 @@ def test_import_guard(tmp_path):
     """Every port module (the server's, the evaluator's, the trainer's,
     ``ops.quant`` and ``parallel`` too) and chip_smoke.py import, and the
     CLI (greedy, --decode beam, --batch, --preset real, --quant int8 with
-    --two-stage 2, --init-models, --export-onnx and -models on the
+    --two-stage 2, --mesh 2 on two CPU ranks, --init-models, --export-onnx
+    and -models on the
     exported ONNX dir), the evaluator's main, the trainer's main (both
     models, 2 steps) and the fused-attention greedy entry run a tiny model
     on the CPU, with the JAX stack, PIL, msgpack and onnx unimportable."""
@@ -161,6 +165,9 @@ def test_import_guard(tmp_path):
     assert (tmp_path / "out_b" / "tiny_STROKES.svg").exists()
     assert (tmp_path / "out_r" / "tiny_STROKES.json").exists()
     assert (tmp_path / "out_q" / "tiny_STROKES.json").exists()
+    assert (tmp_path / "out_mesh" / "tiny_BINARIZED.png").read_bytes() == (
+        tmp_path / "out" / "tiny_BINARIZED.png").read_bytes()
+    assert (tmp_path / "out_mesh" / "tiny_STROKES.json").exists()
     assert "e2e (two-stage amortized)" in proc.stdout
     assert '"stroke_dtw"' in proc.stdout
     for f in ("binarizer.msgpack", "strokes_decoder.msgpack",
@@ -193,6 +200,30 @@ def _tiny_dir(tmp_path):
 
 def _outputs(d):
     return {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+
+
+def test_mesh_flags(tmp_path, capsys):
+    """--mesh 2 on two CPU ranks writes the files of one device (float32),
+    with --batch, --decode beam, --preset real and --host-partition; only
+    rank 0 prints (tests/test_torch_multihost.py holds --mesh-tp's and
+    two-stage's outputs). With --device cuda and fewer cards than ranks it
+    warns and runs on one device, as the JAX CLI does."""
+    models, inp = _tiny_dir(tmp_path)
+    base = ["-models", str(models), "-input", str(inp), "--device", "cpu"]
+    extra = ["--batch", "--decode", "beam", "--beam-size", "3", "--preset",
+             "real", "--host-partition"]
+    assert cli.entrypoint(base + extra + ["--output", str(tmp_path / "a")]
+                          ) == 0
+    capsys.readouterr()
+    assert cli.entrypoint(base + extra + ["--mesh", "2", "--output",
+                                          str(tmp_path / "a2")]) == 0
+    assert _outputs(tmp_path / "a2") == _outputs(tmp_path / "a")
+    assert "[error]" not in capsys.readouterr().out
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.entrypoint(base[:-2] + ["--mesh", "2", "--output",
+                                    str(tmp_path / "c")])
+    assert ("[warn] --mesh 2 requested but only 0 device(s) present; "
+            "running single-device") in capsys.readouterr().out
 
 
 def test_quant_and_two_stage_flags(tmp_path, capsys):

@@ -1,4 +1,4 @@
-"""``chip_smoke.py`` rehearsed on the CPU, all seventeen phases: the card is
+"""``chip_smoke.py`` rehearsed on the CPU, all eighteen phases: the card is
 faked (availability, name, events, ``nvidia-smi``), the device is the CPU,
 the server listens on 127.0.0.1, and the wrappers of
 K1, K2 and K3 run their plain versions (K3's with bfloat16 streams, as on
@@ -14,7 +14,10 @@ steps at batch 2, with one loader worker. The onnx phase exports and runs
 shrunk to tiny widths (a one-level UNet, the tiny encoder, a 64 -> 12
 projection). The int8 and two_stage phases drive the CLI on the first 9
 inputs (two chunks of 8), check the int8 convs at three small shapes and
-hold the int8 eval to the bf16 reference's greedy runs, bars open."""
+hold the int8 eval to the bf16 reference's greedy runs, bars open. The
+mesh phase runs its two ranks on the CPU (processes of their own, where
+the K1 and K2 wrappers count their plain runs) on the first 3 inputs, and
+its trainer at tiny widths."""
 
 import json
 import sys
@@ -36,6 +39,20 @@ class _Event:
 
     def elapsed_time(self, other):
         return (other.t - self.t) * 1e3
+
+
+def _count_plain_launches():
+    """In a rank of the rehearsal's mesh phase (a process of its own, on
+    the CPU): the K1 and K2 wrappers count a launch where they run their
+    plain versions, as the faked card's do in the parent."""
+    from stroke_derenderer_tpu_torch.kernels import fused_beam as fb
+    from stroke_derenderer_tpu_torch.kernels import fused_decode as fd
+    for mod, name in ((fd, "fused_greedy_decode_packed"),
+                      (fb, "fused_beam_decode_packed")):
+        def counted(*args, _mod=mod, _real=getattr(mod, name), **kw):
+            _mod.launch_count += 1
+            return _real(*args, **kw)
+        setattr(mod, name, counted)
 
 
 def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
@@ -177,6 +194,17 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
                                            "--lr", "1e-2"))):
         monkeypatch.setattr(chip_smoke, name, value)
 
+    for name, value in (
+            ("MESH_DEVICES", ("cpu", "cpu")), ("MESH_INPUTS", 3),
+            ("MESH_RANK_SETUP", ("test_torch_smoke", "_count_plain_launches")),
+            ("MESH_TRAIN_BIN", {"features": (8,), "bottleneck": 16,
+                                "compute_dtype": "float32"}),
+            ("MESH_TRAIN_SE", {"encoder_arch": "tiny", "embed_dim": 16,
+                               "attention_dim": 16, "decoder_dim": 16,
+                               "compute_dtype": "float32"}),
+            ("MESH_TRAIN_BATCH", 2), ("MESH_TRAIN_SEQ", 12)):
+        monkeypatch.setattr(chip_smoke, name, value)
+
     assert chip_smoke.main(["--out", str(tmp_path / "smoke.json")]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == {"ok": True, "device": {
@@ -207,10 +235,27 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
     assert by_path["K1"] == {"main": 45, "batch": 1, "serve": served,
                              "refine": 45, "onnx": 45, "onnx-variant": 1,
                              "int8": 9, "int8-batch": 1, "two-stage": 2,
-                             "two-stage-int8": 2, "two-stage-per-image": 9}
+                             "two-stage-int8": 2, "two-stage-per-image": 9,
+                             "mesh": 2, "mesh-f32": 2, "mesh-int8": 2,
+                             "mesh-two-stage": 1}
     assert by_path["K2"].pop("real-beam") >= 2
     assert by_path["K2"] == {"main-beam": 45, "batch-beam": 1,
-                             "onnx-beam": 1, "int8-beam": 1}
+                             "onnx-beam": 1, "int8-beam": 1, "mesh-beam": 2}
+    # The mesh: two CPU ranks over gloo; the CLI's --mesh 2 on the CPU ran
+    # its own two ranks.
+    mesh = record["mesh"]
+    assert (mesh["devices"], mesh["backend"]) == (["cpu", "cpu"], "gloo")
+    assert mesh["float32"]["images_tokens_identical"] == 3
+    for run in ("greedy", "tp", "int8"):
+        assert mesh[run]["masks"]["differing_px"] == 0, run
+    assert mesh["two_stage"]["strokes_identical"] == 3
+    assert mesh["train"]["resumed_from"] == {"binarizer": 2, "captioner": 2}
+    assert set(mesh["train"]) >= {"train_losses", "train_tp_losses",
+                                  "train_param_max_abs_diff",
+                                  "train_tp_param_max_abs_diff"}
+    assert mesh["cli"] == {"exit": 0, "warned": False, "files": 1,
+                           "cards": 1}
+    assert "no scaling figure" in mesh["img_per_s"]["note"]
     # int8: every conv card == CPU (both the CPU here), the demo bars, the
     # CLI's int8 runs, the eval runs; two-stage: outputs as the sequential
     # chunks', per image as phase 4's, each stage's seconds and the overlap.

@@ -3,7 +3,8 @@ the counterparts of the JAX package's ``tests/test_two_stage.py`` (outputs
 as the sequential path's, a stage-B error stops stage A, the end-of-stream
 sentinel survives a lagging consumer), the port's two-stage against the
 JAX package's ``TwoStagePipeline`` on the same inputs in float32, and
-under int8 against the sequential run over the same chunks."""
+under int8 against the sequential run over the same chunks; over a
+two-rank mesh against the JAX package's over its own."""
 
 import threading
 import time
@@ -183,7 +184,23 @@ def test_batched_sentinel_survives_lagging_consumer(models):
 
 
 def test_mesh_is_not_ported(models):
-    binarizer, estimator = _sessions(models)
-    binarizer.mesh = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 13"):
-        TwoStagePipeline(binarizer, estimator)
+    """Two-stage over a mesh, ported: two ranks split into stage A (the
+    first dp half) and stage B; every rank returns the JAX package's
+    ``TwoStagePipeline`` outputs over its own (2, 1) mesh, per image and
+    chunked; the pipelines it was built from keep their mesh."""
+    from torch_mesh_worker import two_stage
+    from stroke_derenderer_tpu.parallel import make_mesh as j_make_mesh
+    from stroke_derenderer_tpu_torch.parallel.multihost import spawn
+    imgs = _imgs()
+    jpipe = JTwoStage(*j_cli.initialize_sessions(models,
+                                                 mesh=j_make_mesh(2)))
+    want = (jpipe.process(imgs, max_length=12),
+            jpipe.process_batched(imgs, chunk_size=2, max_length=12))
+    for split, kept, *got in spawn(two_stage, 2, args=(str(models), imgs),
+                                   timeout_s=300):
+        assert split and kept
+        for (jm, js), (tm, ts) in zip(want, got):
+            for a, b in zip(jm, tm):
+                np.testing.assert_array_equal(a, b)
+            for a, b in zip(js, ts):
+                _same_strokes(b, a)
