@@ -166,9 +166,29 @@ non-zero and prints no result:
    busy seconds (host clock around ``binarize_images`` and
    ``process_images``, each ending in a download), the wall seconds of
    ``process_batched``, the overlap (A + B - wall) / min(A, B), and s/image
-   against the sequential chunks and against phase 9's ``--batch``. Then
-   ``TwoStagePipeline.process`` (image by image): phase 4's files.
-18. mesh: the port's ``parallel/`` in ``MESH_DEVICES`` ranks, one process
+   against the sequential chunks and against phase 9's ``--batch``, and
+   the calls of the native resize and CC (which release the GIL) in the
+   two-stage run. Then ``TwoStagePipeline.process`` (image by image):
+   phase 4's files.
+18. profile: ``utils/profiling``, ``utils/flops`` and the native host ops
+   on phase 4's inputs (the first ``PROFILE_INPUTS``; all by default), the
+   card's name and power limit beside every line. (a) Native resize (to
+   the line height) and CC (with boxes and areas) against numpy and scipy
+   on every image: identical, one native call of each per image, ms per
+   image of each. (b) ``LEDGER`` bytes and events, up and down, per stage
+   and image: per image (``binarize_image``, ``process_image``) and
+   batched (``binarize_images``, ``process_images``), each with the
+   group-id image packed (``gid_rle``, the default) and dense; the packed
+   runs' strokes up bytes must be below the dense runs'. (c)
+   ``StageTimer``'s summary of those runs. (d) Each stage of the per-image
+   and the batched run again under ``device_trace``: ``chip_busy_ms`` and
+   busy / wall; on the card a trace without a CUDA kernel event fails the
+   run. (e) ``bench_flops_per_image`` on these images at the models'
+   widths and the share of the bf16 peak that (c)'s seconds imply. (f) K1
+   launched once per image with glyphs in every per-image run and once per
+   batched run (K2, K3 never), and K1 on these images' glyph rows in one
+   batch against its plain version (phase 3's bf16 bar).
+19. mesh: the port's ``parallel/`` in ``MESH_DEVICES`` ranks, one process
    each (``multihost.spawn``; two ranks share the card over gloo, as NCCL
    refuses two ranks on one device), on the 45 inputs at ``models_demo``'s
    widths: over a (2, 1) mesh greedy bf16, greedy float32, beam
@@ -299,11 +319,13 @@ INT8_COSINE = 0.98   # encoder features, int8 against bf16, demo weights
 JAX_EVAL_INT8 = GOLDEN / "jax_cpu_eval_int8.json"  # phase 16's reference
 # Phase 17 (two_stage): the chunk size of --two-stage.
 TWO_STAGE_CHUNK = 8
+# Phase 18's inputs: the first PROFILE_INPUTS of phase 4's (None: all).
+PROFILE_INPUTS = None
 # Phases 16 and 17 drive the CLI on the first this many inputs (all 45:
 # None).
 SLICE_INPUTS = None
 
-# Phase 18 (mesh): two ranks, one process each, sharing the card over gloo
+# Phase 19 (mesh): two ranks, one process each, sharing the card over gloo
 # (NCCL refuses two ranks on one device); with two cards or more, also a
 # run over two cards with NCCL.
 MESH_DEVICES = ("cuda:0", "cuda:0")
@@ -1782,6 +1804,7 @@ def two_stage_phase(cli, read_png, imgs, main_out, counters, runs: dict,
                     batch_rec: dict) -> dict:
     """Phase 17: ``--two-stage`` (see the module docstring). ``runs`` maps
     "none" and "int8" to their (binarizer, estimator) pair."""
+    from stroke_derenderer_tpu_torch.native import cc_native, resize_native
     from stroke_derenderer_tpu_torch.parallel import TwoStagePipeline
     from stroke_derenderer_tpu_torch.parallel import two_stage
 
@@ -1835,9 +1858,14 @@ def two_stage_phase(cli, read_png, imgs, main_out, counters, runs: dict,
     rec: dict = {"chunk": chunk, "chunks": n_chunks}
     for quant, (b, e) in runs.items():
         bar = MASK_AGREE if quant == "none" else INT8_AGREE
+        calls = (resize_native.call_count, cc_native.call_count)
         with stage_clock(b, e) as two:
             r, two_out = drive_cli(cli, read_png, imgs, b, e, counters,
                                    two_stage_runner, mask_agree=bar)
+        # Resize and CC through the native libraries (no GIL held).
+        r["native_calls"] = {
+            "resize": resize_native.call_count - calls[0],
+            "cc": cc_native.call_count - calls[1]}
         with stage_clock(b, e) as seq:
             r_seq, seq_out = drive_cli(cli, read_png, imgs, b, e, counters,
                                        chunks_runner, mask_agree=bar)
@@ -1854,11 +1882,11 @@ def two_stage_phase(cli, read_png, imgs, main_out, counters, runs: dict,
         rec[quant] = r
         print(json.dumps({"two_stage": quant} | {k: r[k] for k in (
             "launches", "against_sequential_chunks", "stage_s", "overlap",
-            "s_per_image")}), flush=True)
+            "s_per_image", "native_calls")}), flush=True)
         same = r["against_sequential_chunks"]
         if (r["launches"] != {"K1": n_chunks, "K2": 0, "K3": 0}
                 or same["differing_px"] or same["strokes_identical"]
-                != len(imgs)):
+                != len(imgs) or not all(r["native_calls"].values())):
             raise SystemExit(f"two-stage ({quant}): {r}")
     b, e = runs["none"]
     rec["per_image"], pi_out = drive_cli(cli, read_png, imgs, b, e, counters,
@@ -1868,6 +1896,203 @@ def two_stage_phase(cli, read_png, imgs, main_out, counters, runs: dict,
     same = rec["per_image"]["against_per_image"]
     if same["differing_px"] or same["strokes_identical"] != len(imgs):
         raise SystemExit(f"two-stage per image: {rec['per_image']}")
+    return rec
+
+
+def profile_phase(imgs, binarizer, estimator, counters, dev, smi: str,
+                  main_out: dict) -> dict:
+    """Phase 18: the port's ``utils/profiling`` and ``utils/flops`` and its
+    native host ops on the main path (see the module docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from stroke_derenderer_tpu_torch.kernels import fused_decode as fd
+    from stroke_derenderer_tpu_torch.models.encoder import encode_postprocess
+    from stroke_derenderer_tpu_torch.native import cc_native, resize_native
+    from stroke_derenderer_tpu_torch.ops import connected, resize
+    from stroke_derenderer_tpu_torch.utils import profiling
+    from stroke_derenderer_tpu_torch.utils.flops import bench_flops_per_image
+
+    images = [img for img, _ in imgs]
+    main_masks = [main_out[name][0] for _, name in imgs]
+    n = len(images)
+    with_glyphs = sum(bool(m.any()) for m in main_masks)
+    thr = 255 * binarizer.config.bin_thr
+    rec: dict = {"images": n, "card": smi}
+
+    # (a) native against the plain versions on every image.
+    def clock(fn):
+        t = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t
+
+    height = binarizer.config.height
+    spent = {"resize": {"native": 0.0, "numpy": 0.0},
+             "cc": {"native": 0.0, "scipy": 0.0}}
+    calls = (resize_native.call_count, cc_native.call_count)
+    for img, mask, (_, name) in zip(images, main_masks, imgs):
+        a, ta = clock(lambda: resize.resize_to_height_np(img, height))
+        b, tb = clock(lambda: resize.resize_to_height_np(img, height,
+                                                         backend="numpy"))
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise SystemExit(f"native resize differs from numpy on {name}")
+        a, tc = clock(lambda: connected.connected_components_with_boxes(
+            mask, with_area=True))
+        b, td = clock(lambda: connected.connected_components_with_boxes(
+            mask, with_area=True, backend="scipy"))
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise SystemExit(f"native CC differs from scipy on {name}")
+        spent["resize"]["native"] += ta
+        spent["resize"]["numpy"] += tb
+        spent["cc"]["native"] += tc
+        spent["cc"]["scipy"] += td
+    if (resize_native.call_count - calls[0],
+            cc_native.call_count - calls[1]) != (n, n):
+        raise SystemExit("the native libraries were not called once per "
+                         "image")
+    rec["native_ms_per_image"] = {
+        op: {backend: 1e3 * t / n for backend, t in d.items()}
+        for op, d in spent.items()}
+    print(json.dumps({"profile_native_ms_per_image":
+                      rec["native_ms_per_image"], "card": smi}), flush=True)
+
+    # (b), (c): the ledger per stage and image, per image and batched, the
+    # group-id image packed and dense, each stage's host seconds.
+    timer = profiling.StageTimer()
+    ledger = profiling.LEDGER
+    launches: dict = {}
+
+    def counted(key, fn):
+        for mod in counters.values():
+            mod.launch_count = 0
+        out = fn()
+        launches[key] = {k: m.launch_count for k, m in counters.items()}
+        return out
+
+    def binarize(path, tag=""):
+        with timer(f"binarize{tag}"):
+            if path == "per_image":
+                return [binarizer.binarize_image(img)[:, :, 0] > thr
+                        for img in images]
+            return [b[:, :, 0] > thr for b in binarizer.binarize_images(
+                images)]
+
+    def strokes(path, masks, tag=""):
+        with timer(f"strokes{tag}"):
+            if path == "per_image":
+                return [estimator.process_image(m) for m in masks]
+            return estimator.process_images(masks)
+
+    def per_stage(path, tag, key):
+        s0 = ledger.snapshot()
+        masks = binarize(path, tag)
+        s1 = ledger.snapshot()
+        out = counted(key, lambda: strokes(path, masks, tag))
+        return {"binarize": tuple(a - b for a, b in zip(s1, s0)),
+                "strokes": ledger.delta(s1)}, out
+
+    config = estimator.config
+    ledgers, outputs = {}, {}
+    for gid in ("packed", "dense"):
+        estimator.config = dataclasses.replace(config,
+                                               gid_rle=gid == "packed")
+        try:
+            for path in ("per_image", "batch"):
+                tag = ("" if path == "per_image" else "_batch") + (
+                    "" if gid == "packed" else "_dense")
+                led, outputs[path, gid] = per_stage(path, tag,
+                                                    f"{path}_{gid}")
+                ledgers[f"{path}_{gid}"] = {
+                    stage: {"up_bytes": v[0] / n, "down_bytes": v[1] / n,
+                            "up_events": v[2] / n, "down_events": v[3] / n}
+                    for stage, v in led.items()}
+        finally:
+            estimator.config = config
+    for path in ("per_image", "batch"):
+        packed = ledgers[f"{path}_packed"]["strokes"]["up_bytes"]
+        dense = ledgers[f"{path}_dense"]["strokes"]["up_bytes"]
+        if not packed < dense:
+            raise SystemExit(f"profile {path}: the packed group-id upload "
+                             f"({packed} B/image) is not below the dense "
+                             f"one ({dense})")
+    rec["ledger_per_image"] = ledgers
+    # Packing is lossless: the images whose strokes are the dense run's.
+    rec["packed_strokes_as_dense"] = {
+        path: sum(_same_strokes(a, b) for a, b in zip(
+            outputs[path, "packed"], outputs[path, "dense"]))
+        for path in ("per_image", "batch")}
+    print(json.dumps({"profile_ledger_per_image": ledgers, "card": smi}),
+          flush=True)
+    print(timer.summary(), flush=True)
+    rec["timer"] = timer.as_dict()
+
+    # (d) the card's busy time under device_trace: one trace per stage,
+    # per image and batched.
+    busy = {}
+    with tempfile.TemporaryDirectory() as traces:
+        for path in ("per_image", "batch"):
+            tag = ("" if path == "per_image" else "_batch") + "_traced"
+            masks = None
+            for stage in ("binarize", "strokes"):
+                d = Path(traces) / f"{path}_{stage}"
+                with profiling.device_trace(d, dev):
+                    t = time.perf_counter()
+                    if stage == "binarize":
+                        masks = binarize(path, tag)
+                    else:
+                        counted(f"{path}_traced",
+                                lambda: strokes(path, masks, tag))
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t
+                ms = profiling.chip_busy_ms(d)
+                if dev.type == "cuda" and ms is None:
+                    raise SystemExit(f"profile: the {path} {stage} trace "
+                                     "holds no CUDA kernel event")
+                busy[f"{path}_{stage}"] = {
+                    "busy_ms": ms, "wall_ms": 1e3 * wall,
+                    "busy_share": None if ms is None else ms / (1e3 * wall),
+                    "trace_bytes": sum(f.stat().st_size
+                                       for f in d.iterdir())}
+    rec["busy"] = busy
+    print(json.dumps({"profile_busy": busy, "card": smi}), flush=True)
+
+    # K1: once per image with glyphs per image, once per batch.
+    for key, got in launches.items():
+        want = with_glyphs if key.startswith("per_image") else 1
+        if got != {"K1": want, "K2": 0, "K3": 0}:
+            raise SystemExit(f"profile {key}: launches {got}, K1 should "
+                             f"launch {want} times")
+    rec["launches"] = launches
+
+    # (e) FLOPs per image at these models' widths (decode_steps = the
+    # length limit, the most a row can decode), and the share of the bf16
+    # peak that each stage's untraced host seconds per image imply.
+    fl = bench_flops_per_image(images, MAX_LENGTH, binarizer.config,
+                               estimator.config)
+    fl["bf16_peak_share"] = {
+        f"{stage}{tag}": fl[f"{stage}_flops_per_image"]
+        / (timer.totals[f"{stage}{tag}"] / n) / PEAK_FLOPS["bfloat16"]
+        for stage in ("binarize", "strokes") for tag in ("", "_batch")}
+    rec["flops"] = fl
+    print(json.dumps({"profile_flops": fl, "card": smi}), flush=True)
+
+    # (f) K1 on these images' glyph rows in one batch against its plain
+    # version (these launches are not counted above).
+    with torch.inference_mode():
+        crops, _, _, _ = estimator._gather_batch(main_masks)
+        seq = encode_postprocess(
+            estimator.encoder(estimator._normalize_raw(crops)),
+            estimator.config.encode_image_size)
+        rec["k1"] = compare_k1(fd, estimator.decoder, seq, torch.bfloat16,
+                               "profile batch")
+    print(json.dumps({k: rec["k1"][k] for k in (
+        "case", "dtype", "B", "agree", "rows_identical", "ok", "ms",
+        "plain_ms")}), flush=True)
+    if not rec["k1"]["ok"]:
+        raise SystemExit(f"profile: K1 disagrees with its plain version: "
+                         f"{rec['k1']}")
     return rec
 
 
@@ -1933,7 +2158,7 @@ def _mesh_train(dev, out_dir, mesh=None,
     return {k: (r.start_step, r.losses) for k, r in res.items()}
 
 
-# The settings a rank of phase 18 takes from the script that spawned it.
+# The settings a rank of phase 19 takes from the script that spawned it.
 MESH_SETTINGS = ("MAX_LENGTH", "BEAM", "TWO_STAGE_CHUNK", "MODELS",
                  "MESH_TRAIN_BIN", "MESH_TRAIN_SE", "MESH_TRAIN_STEPS",
                  "MESH_TRAIN_BATCH", "MESH_TRAIN_SEQ", "MESH_TRAIN_LR")
@@ -1956,7 +2181,7 @@ def _train_argv(out_dir) -> list:
 
 
 def mesh_rank(paths, setup, train_dir, full: bool, settings: dict) -> dict:
-    """One rank of phase 18 (run by ``multihost.spawn``): the runs over a
+    """One rank of phase 19 (run by ``multihost.spawn``): the runs over a
     (2, 1) mesh (greedy bf16 and float32, beam, int8, two-stage), the
     binarizer over a (1, 2) mesh and, with ``full``, the trainer. Rank 0
     returns the outputs; every rank its launches and seconds.
@@ -2034,7 +2259,7 @@ def _digest(tensors: dict) -> str:
 
 
 def _all_reduce_one() -> float:
-    """A rank's all-reduce of a one on its card (phase 18's NCCL probe)."""
+    """A rank's all-reduce of a one on its card (phase 19's NCCL probe)."""
     import torch
     import torch.distributed as dist
     t = torch.ones(1, device="cuda")
@@ -2060,7 +2285,7 @@ def _same_strokes(a, b) -> bool:
 
 def mesh_phase(cli, paths, imgs, batch_out, q_binarizer, binarizer,
                estimator, dev) -> dict:
-    """Phase 18: the port's mesh (``parallel/``; see the module
+    """Phase 19: the port's mesh (``parallel/``; see the module
     docstring). ``paths`` are the files of ``imgs``."""
     import numpy as np
     import torch
@@ -2859,7 +3084,26 @@ def main(argv=None) -> int:
         f" overlap {two_rec[q]['overlap']:.3f}" for q in per)
         + "; per-image mode as the per-image run")
 
-    # 18. the mesh ------------------------------------------------------------
+    # 18. profile -----------------------------------------------------------
+    t0 = time.monotonic()
+    prof_imgs = imgs[:PROFILE_INPUTS] if PROFILE_INPUTS else imgs
+    prof_rec = profile_phase(prof_imgs, binarizer, estimator, counters, dev,
+                             smi, main_out)
+    record["profile"] = prof_rec
+    up = {gid: prof_rec["ledger_per_image"][f"per_image_{gid}"]["strokes"][
+        "up_bytes"] for gid in ("packed", "dense")}
+    shares = ", ".join(
+        f"{k} {v['busy_share']:.3f}" if v["busy_share"] is not None
+        else f"{k} no device track" for k, v in prof_rec["busy"].items())
+    natives = ", ".join(f"{op} {d['native']:.3f} ms/image" for op, d in
+                        prof_rec["native_ms_per_image"].items())
+    _phase("profile", t0, f"{len(prof_imgs)} images: native resize and CC "
+           f"as numpy's and scipy's ({natives}); strokes up bytes/image "
+           f"packed {up['packed']:.0f} < dense {up['dense']:.0f}; busy "
+           f"share {shares}; K1 agreement with its plain version "
+           f"{prof_rec['k1']['agree']:.4f}; {smi}")
+
+    # 19. the mesh ------------------------------------------------------------
     t0 = time.monotonic()
     mesh_rec = mesh_phase(cli, inputs, imgs, batch_out, q_binarizer,
                           binarizer, estimator, dev)
@@ -2902,6 +3146,12 @@ def main(argv=None) -> int:
                "two-stage": two_rec["none"]["launches"]["K1"],
                "two-stage-int8": two_rec["int8"]["launches"]["K1"],
                "two-stage-per-image": two_rec["per_image"]["launches"]["K1"],
+               "profile": sum(v["K1"] for k, v in
+                              prof_rec["launches"].items()
+                              if k.startswith("per_image")),
+               "profile-batch": sum(v["K1"] for k, v in
+                                    prof_rec["launches"].items()
+                                    if k.startswith("batch")),
                "mesh": mesh_k["greedy"], "mesh-f32": mesh_k["greedy_f32"],
                "mesh-int8": mesh_k["int8"],
                "mesh-two-stage": mesh_k["two_stage"]}

@@ -110,6 +110,9 @@ class StrokesConfig:
     # spans the whole batch, pad rows included.
     glyph_bucket: int = 8
     device_partition: bool = True
+    # Run-length encode the group-id image for its upload where that beats
+    # the dense packing (ops/device_partition.pack_gid).
+    gid_rle: bool = True
     # process_images: the batch is split into this many sub-dispatches.
     io_chunks: int = 1
 

@@ -24,7 +24,6 @@ pipeline's own normalize chain, so cached batches equal live
 from __future__ import annotations
 
 import json
-import logging
 from pathlib import Path
 
 import numpy as np
@@ -46,7 +45,9 @@ def build_glyph_cache(out_dir: str | Path, n: int, seq_len: int = 384,
         make_partitioned_glyph_sample,
     )
 
-    log = logging.getLogger(__name__)
+    from stroke_derenderer_tpu_torch.utils.logging import get_logger
+
+    log = get_logger("data.cache")
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)

@@ -25,7 +25,6 @@ teacher horizon are skipped, never truncated.
 from __future__ import annotations
 
 import json
-import logging
 import threading
 from pathlib import Path
 
@@ -40,6 +39,7 @@ from stroke_derenderer_tpu_torch.data.synthetic import (
 from stroke_derenderer_tpu_torch.io import load_image
 from stroke_derenderer_tpu_torch.ops.resize import resize_to_height_np
 from stroke_derenderer_tpu_torch.ops.tiling import cut_tiles_np, plan_tiles
+from stroke_derenderer_tpu_torch.utils.logging import get_logger
 
 
 def discover_pairs(data_dir: str | Path) -> list[tuple[Path, Path]]:
@@ -215,7 +215,7 @@ def real_glyph_batches(data_dir: str | Path, rng: np.random.Generator,
             pool.extend(got)
             skipped += 0 if got else 1
         if skipped:
-            logging.getLogger(__name__).warning(
+            get_logger("data.real").warning(
                 "%d/%d labeled lines contributed no glyphs (empty "
                 "partitions or token strings over the %d-token horizon — "
                 "raise --seq-len to include them)",

@@ -1,5 +1,6 @@
-"""Host-side image, JSON and SVG I/O: a PNG reader and writer on ``zlib`` +
-numpy, and the SVG export of strokes.
+"""Host-side image, JSON, YAML, pickle and SVG I/O: a PNG reader and writer
+on ``zlib`` + numpy, the SVG export of strokes and the JAX package's serial
+helpers.
 
 Counterpart of the JAX package's ``io/images.py`` (which uses PIL),
 ``io/serial.py`` and ``io/svg.py``. PNG files and PNG bytes (a request
@@ -17,6 +18,7 @@ looked up. The writer writes L or RGB with filter 0.
 from __future__ import annotations
 
 import json
+import pickle
 import struct
 import zlib
 from pathlib import Path
@@ -239,9 +241,35 @@ def save_image(img: np.ndarray, save_filepath, grayscale: bool = False) -> None:
     write_png(save_filepath, arr)
 
 
+def load_json(json_path):
+    with open(json_path) as f:
+        return json.load(f)
+
+
 def save_json(obj, save_path) -> None:
     with open(save_path, "w") as out:
         json.dump(obj, out)
+
+
+def load_yaml(filepath):
+    """A YAML file's content; needs PyYAML, imported here (ImportError
+    without it, as the JAX function raises)."""
+    import yaml
+    with open(filepath) as stream:
+        return yaml.safe_load(stream)
+
+
+def save_metrics(metrics, filename) -> None:
+    """Pickle ``metrics`` to ``filename``."""
+    with open(filename, "wb") as fid:
+        pickle.dump(metrics, fid)
+
+
+def load_metrics(filename):
+    """Unpickle a file that :func:`save_metrics` wrote (unpickling runs
+    code: read only files this program wrote)."""
+    with open(filename, "rb") as f:
+        return pickle.load(f)
 
 
 _SVG_HEADER = ('<svg xmlns="http://www.w3.org/2000/svg" '
@@ -295,3 +323,9 @@ def save_svg(strokes, filepath, size: tuple[float, float] | None = None,
     Path(filepath).write_text(
         strokes_to_svg(strokes, size=size, scale=scale,
                        stroke_width=stroke_width, color=color))
+
+
+def json_strokes_to_svg(stroke_json: list, **kwargs) -> str:
+    """A ``_STROKES.json`` structure ([[X list, Y list], ...]) -> SVG."""
+    return strokes_to_svg([(np.asarray(x), np.asarray(y))
+                           for x, y in stroke_json], **kwargs)

@@ -7,9 +7,11 @@ group and axis, the first source index and the second bilinear weight of
 each output texel. The device rebuilds each group's canvas as
 ``gid == g`` and resizes and pads it with two batched matrix products.
 
-The JAX package run-length encodes or nibble-packs the group-id image for
-its host-to-device hop (``pack_gid``/``unpack_gid``). Packing is lossless,
-so the port uploads the dense int16 image, which gives the same crops.
+The group-id image travels packed, as the JAX package sends it
+(:func:`pack_gid` on the host, :func:`unpack_gid` on the device): run-length
+encoded where that is well under the dense form (``StrokesConfig.gid_rle``,
+on by default), else nibble-, int8- or int16-packed. Packing is lossless, so
+the crops are those of the dense image.
 
 Known (deliberate) deviation, kept from the JAX package: a group whose union
 bounding box is entirely foreground stays foreground here, where the host
@@ -134,6 +136,68 @@ def plan_partitions(img_bin: np.ndarray, margin: int, out_size: int
         partitions=partitions, ink=np.asarray(inks, np.int64))
 
 
+_RLE_BUCKET = 2048  # run counts are padded to a multiple of this
+
+
+def pack_gid(gid: np.ndarray, max_groups: int,
+             allow_rle: bool = True) -> tuple:
+    """A group-id image or stack, (..., W) int16 with -1 for background, ->
+    (packed, fmt) for the host-to-device hop, the JAX package's formats:
+
+    - ``"rle:<d0>x<d1>..."``: runs over the row-major flattening, packed =
+      (starts int32 (R,), vals int16 (R,)) with R padded to a multiple of
+      ``_RLE_BUCKET`` (pad starts = the pixel count); chosen only where its
+      bytes are under 0.6 of the dense form's;
+    - ``"nib"``: ids + 1 two to a byte (high nibble first), where every id
+      fits a nibble (``max_groups`` <= 15) and W is even;
+    - ``"i8"`` (``max_groups`` < 128), else ``"i16"``."""
+    if max_groups <= 15 and gid.shape[-1] % 2 == 0:
+        dense_fmt, dense_bytes = "nib", gid.size // 2
+    elif max_groups < 128:
+        dense_fmt, dense_bytes = "i8", gid.size
+    else:
+        dense_fmt, dense_bytes = "i16", 2 * gid.size
+    if allow_rle:
+        flat = np.ascontiguousarray(gid, np.int16).reshape(-1)
+        starts = np.flatnonzero(flat[1:] != flat[:-1]) + 1
+        r = starts.size + 1
+        rb = -(-r // _RLE_BUCKET) * _RLE_BUCKET
+        if rb * 6 < 0.6 * dense_bytes:
+            st = np.full(rb, flat.size, np.int32)
+            st[0], st[1:r] = 0, starts
+            vals = np.zeros(rb, np.int16)
+            vals[0], vals[1:r] = flat[0], flat[starts]
+            shape = "x".join(str(d) for d in gid.shape)
+            return (st, vals), f"rle:{shape}"
+    # The dense form is built only where it is sent.
+    if dense_fmt == "nib":
+        v = (gid + 1).astype(np.uint8)
+        return (v[..., 0::2] << 4) | v[..., 1::2], "nib"
+    return gid.astype(np.int8 if dense_fmt == "i8" else np.int16), dense_fmt
+
+
+def unpack_gid(packed, fmt: str) -> torch.Tensor:
+    """The inverse of :func:`pack_gid` on the packed tensors' device ->
+    int32 group ids. Runs expand as ones scattered at the run starts, then
+    a cumulative sum (the JAX version's formulation); the padded starts,
+    equal to the pixel count, land in one extra element that is cut."""
+    if fmt.startswith("rle:"):
+        shape = tuple(int(d) for d in fmt[4:].split("x"))
+        starts, vals = packed
+        n = int(np.prod(shape))
+        seg = torch.zeros(n + 1, dtype=torch.int32, device=vals.device)
+        seg.scatter_add_(0, starts.long(), torch.ones_like(starts,
+                                                           dtype=torch.int32))
+        k = torch.cumsum(seg[:n], 0) - 1
+        return vals[k].to(torch.int32).reshape(shape)
+    if fmt == "nib":
+        hi = (packed >> 4).to(torch.int32) - 1
+        lo = (packed & 15).to(torch.int32) - 1
+        return torch.stack([hi, lo], dim=-1).reshape(
+            packed.shape[:-1] + (packed.shape[-1] * 2,))
+    return packed.to(torch.int32)
+
+
 def _expand_axis(i0, w1, last):
     """(i0, w1 with the -1 sentinel, last) -> (i0, i1, w0, w1)."""
     valid = w1 >= 0.0
@@ -152,24 +216,28 @@ def _interp_rows(i0, w1, last, size: int):
             + w1[:, :, None] * (s == i1[:, :, None]))
 
 
-def gather_crops(gid_img: torch.Tensor, coords) -> torch.Tensor:
-    """(H, W) group-id image + the plan's compact coordinates, as tensors on
-    one device -> (N, S, S) float32 crops with values 0..255. The float32
-    products need TF32 off on the card (``device.resolve_device``)."""
-    g = torch.arange(coords[0].shape[0], device=gid_img.device)
-    src = gid_img.long()[None] == g[:, None, None]
+def gather_crops(gid_img, coords, gid_fmt: str = "i16") -> torch.Tensor:
+    """(H, W) group-id image (packed as :func:`pack_gid` gives ``gid_fmt``)
+    + the plan's compact coordinates, as tensors on one device -> (N, S, S)
+    float32 crops with values 0..255. The float32 products need TF32 off on
+    the card (``device.resolve_device``)."""
+    gid = unpack_gid(gid_img, gid_fmt)
+    g = torch.arange(coords[0].shape[0], device=gid.device,
+                     dtype=torch.int32)
+    src = gid[None] == g[:, None, None]
     return _interp_crops(src.float() * 255.0, coords)
 
 
-def gather_crops_batched(gid_stack: torch.Tensor, img_idx: torch.Tensor,
-                         local_id: torch.Tensor, coords) -> torch.Tensor:
-    """Cross-image variant: ``gid_stack`` (I, H, W) int16 holds every
-    image's group-id image, padded with -1; ``img_idx`` and ``local_id``
-    (N,) give each glyph row's image and its group id there; ``coords`` as
-    for :func:`gather_crops`, one row per glyph. -> (N, S, S) float32 crops,
-    the rows :func:`gather_crops` gives for each image."""
-    src = gid_stack[img_idx.long()] == local_id.to(gid_stack.dtype)[:, None,
-                                                                     None]
+def gather_crops_batched(gid_stack, img_idx: torch.Tensor,
+                         local_id: torch.Tensor, coords,
+                         gid_fmt: str = "i16") -> torch.Tensor:
+    """Cross-image variant: ``gid_stack`` (I, H, W) holds every image's
+    group-id image, padded with -1 (packed as ``gid_fmt``); ``img_idx`` and
+    ``local_id`` (N,) give each glyph row's image and its group id there;
+    ``coords`` as for :func:`gather_crops`, one row per glyph. -> (N, S, S)
+    float32 crops, the rows :func:`gather_crops` gives for each image."""
+    gid = unpack_gid(gid_stack, gid_fmt)
+    src = gid[img_idx.long()] == local_id.to(torch.int32)[:, None, None]
     return _interp_crops(src.float() * 255.0, coords)
 
 

@@ -1,9 +1,12 @@
 """Bilinear resize with OpenCV semantics (half-pixel centres, edge clamp),
-on the host in numpy: the host path of the JAX ``ops/resize.py``.
+on the host: the host path of the JAX ``ops/resize.py``.
 
-The JAX package sends uint8 images to a native C++ resize when a compiler is
-present; its docstring states that the C++ kernel is bit-identical to this
-numpy gather + lerp, so the port needs no host C++ build.
+As in the JAX package, uint8 images take the native C++ resize
+(``native/resize.cpp``, built with g++ at first use; a failed build raises)
+by default: bit for bit this module's numpy gather + lerp, several times
+faster, and a ctypes call releases the GIL, so the two-stage pipeline's
+threads overlap. ``backend="numpy"`` asks for the numpy version, which
+other dtypes always take.
 """
 
 from __future__ import annotations
@@ -28,9 +31,17 @@ def _interp_coords(src: int, dst: int):
     return x0, x1, f.astype(np.float32)
 
 
-def resize_bilinear_np(img: np.ndarray, dst_h: int, dst_w: int) -> np.ndarray:
+def resize_bilinear_np(img: np.ndarray, dst_h: int, dst_w: int,
+                       backend: str = "native") -> np.ndarray:
     """cv2.resize(img, (dst_w, dst_h)) equivalent. uint8 stays uint8
-    (rounded to nearest, clipped); other dtypes come back float32."""
+    (rounded to nearest, clipped) and runs natively unless ``backend`` is
+    ``"numpy"``; other dtypes come back float32."""
+    if backend not in ("native", "numpy"):
+        raise ValueError(f"backend must be 'native' or 'numpy', got "
+                         f"{backend!r}")
+    if img.dtype == np.uint8 and backend == "native":
+        from stroke_derenderer_tpu_torch.native import resize_native
+        return resize_native.resize_u8(img, dst_h, dst_w)
     h, w = img.shape[0], img.shape[1]
     y0, y1, fy = _interp_coords(h, dst_h)
     x0, x1, fx = _interp_coords(w, dst_w)
@@ -55,7 +66,9 @@ def resize_bilinear_np(img: np.ndarray, dst_h: int, dst_w: int) -> np.ndarray:
     return x
 
 
-def resize_to_height_np(img: np.ndarray, height: int) -> np.ndarray:
-    """Aspect-preserving resize; the width truncates like ``int(w * ratio)``."""
+def resize_to_height_np(img: np.ndarray, height: int,
+                        backend: str = "native") -> np.ndarray:
+    """Aspect-preserving resize; the width truncates like
+    ``int(w * ratio)``."""
     h, w = img.shape[0], img.shape[1]
-    return resize_bilinear_np(img, height, int(w * (height / h)))
+    return resize_bilinear_np(img, height, int(w * (height / h)), backend)

@@ -32,6 +32,7 @@ import torch
 import torch.distributed as dist
 
 from stroke_derenderer_tpu_torch.parallel import multihost
+from stroke_derenderer_tpu_torch.utils.profiling import LEDGER
 
 
 class Mesh:
@@ -102,13 +103,23 @@ class Mesh:
                                "mesh (no process group, or another mesh)")
         return self._groups.get(axis)
 
+    def _hops(self, t: torch.Tensor) -> bool:
+        """Whether a collective on ``t`` goes through host memory from a
+        card (gloo on a card): its copies down and up are then transfer
+        hops of this rank, counted in ``LEDGER``."""
+        return self._cpu_comm and t.device.type != "cpu"
+
     def _collective(self, t: torch.Tensor, axis: str, op) -> torch.Tensor:
         """``op(tensor, group)`` on a copy of ``t`` that the backend takes
         (on the host for gloo), returned on ``t``'s device."""
         group = self._group(axis)
         x = t.detach()
         x = x.cpu().clone() if self._cpu_comm else x.clone().contiguous()
+        if self._hops(t):
+            LEDGER.add_down(x)
         op(x, group)
+        if self._hops(t):
+            LEDGER.add_up(x)
         return x.to(t.device)
 
     # ---------------------------------------------------------- collectives
@@ -143,7 +154,11 @@ class Mesh:
             x = x.cpu()
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x, group=self._group(axis))
-        return torch.cat(parts, dim=dim).to(t.device, t.dtype)
+        out = torch.cat(parts, dim=dim)
+        if self._hops(t):
+            LEDGER.add_down(x)
+            LEDGER.add_up(out)
+        return out.to(t.device, t.dtype)
 
     def halo(self, x: torch.Tensor, pad: int) -> torch.Tensor:
         """NCHW ``x``, this rank's columns of a width split over tp ->

@@ -41,6 +41,7 @@ from stroke_derenderer_tpu_torch.ops.tiling import (
 from stroke_derenderer_tpu_torch.parallel.mesh import (
     padded_batch, spmd, tile_sharding,
 )
+from stroke_derenderer_tpu_torch.utils.profiling import download, upload
 from stroke_derenderer_tpu_torch.weights import (
     from_flax_unet, init_binarizer, read_msgpack,
 )
@@ -145,23 +146,25 @@ class Binarizer:
         return mesh.all_gather(m, "dp", dim=0)
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        return upload(self.device, arr)[0]
 
     @torch.inference_mode()
     def binarize_tiles(self, tiles_u8: np.ndarray) -> np.ndarray:
         """(T, H, W, C) uint8 tiles -> (T, H, W, 1) uint8 masks in {0, 255}."""
         t = tiles_u8.shape[0]
         if self.mesh is None:
+            # The JAX package pads the batch on the host and uploads the
+            # pad tiles too; the port pads on the device and uploads T.
             tb = _round_up(t, self.config.batch_bucket)
             x = torch.zeros((tb,) + tiles_u8.shape[1:], dtype=torch.uint8,
                             device=self.device)
             x[:t] = self._upload(tiles_u8)
-            return self._mask(x)[:t].cpu().numpy()
+            return download(self._mask(x)[:t])
         tb = padded_batch(t, self.config.batch_bucket, self.mesh.shape["dp"])
         x = np.zeros((tb,) + tiles_u8.shape[1:], np.uint8)
         x[:t] = tiles_u8
         local = self._upload(x[self.mesh.rows(tb)])
-        return self._sharded_mask(local)[:t].cpu().numpy()
+        return download(self._sharded_mask(local)[:t])
 
     @torch.inference_mode()
     def _fused_batch(self, imgs_u8: np.ndarray, plan: TilePlan) -> torch.Tensor:
@@ -218,14 +221,17 @@ class Binarizer:
                                   for p in prepped])
                 pending.append((self._fused_batch(batch, plan), chunk, plan))
         for packed, chunk, plan in pending:
-            masks = np.unpackbits(packed.cpu().numpy(),
+            masks = np.unpackbits(download(packed),
                                   axis=-1)[:, :, :plan.img_width]
             for j, i in enumerate(chunk):
                 out[i] = (masks[j] * 255).astype(np.uint8)[:, :, None]
 
     def binarize_image(self, image: np.ndarray) -> np.ndarray:
         """(H0, W0, C) uint8 -> (height, W_rs, 1) uint8 in {0, 255}; with
-        ``fused``, through the batched fused program as a batch of one."""
+        ``fused``, through the batched fused program as a batch of one
+        (where the JAX package's fused single-image program uploads the
+        three-channel line and downloads the byte mask, this uploads an
+        achromatic line as one channel and downloads the mask's bits)."""
         if self.fused:
             return self.binarize_images([image])[0]
         tiles, plan = self.preprocess_image(image)

@@ -3,10 +3,11 @@ fused greedy (K1) or beam (K2) decode -> strokes.
 
 Counterpart of ``StrokeEstimator.process_image`` and ``process_images`` of
 the JAX ``pipeline/strokes.py``. With ``device_partition`` on (the
-default) the host ships a group-id image and the crops are built on the
-device; with it off (``--host-partition``) :func:`compute_partitions` builds
-them on the host, as training data is built, and the uint8 crops are
-uploaded.
+default) the host ships a group-id image, packed as the JAX package packs
+it (``ops.device_partition.pack_gid``), with the plan in one copy, and the
+crops are built on the device; with it off (``--host-partition``)
+:func:`compute_partitions` builds them on the host, as training data is
+built, and the uint8 crops are uploaded.
 ``process_images`` runs the glyphs of every image through one crop gather,
 one encoder call and one decode launch (per ``config.io_chunks`` chunk).
 With ``redecode_coverage`` > 0, ink that the strokes leave uncovered is
@@ -56,7 +57,8 @@ from stroke_derenderer_tpu_torch.models.encoder import (
 from stroke_derenderer_tpu_torch.models.layers import linear
 from stroke_derenderer_tpu_torch.ops import grouping
 from stroke_derenderer_tpu_torch.ops.device_partition import (
-    PartitionPlan, gather_crops, gather_crops_batched, plan_partitions,
+    PartitionPlan, gather_crops, gather_crops_batched, pack_gid,
+    plan_partitions,
 )
 from stroke_derenderer_tpu_torch.ops.normalize import (
     imagenet_normalize_np, minmax_normalize_np,
@@ -66,6 +68,7 @@ from stroke_derenderer_tpu_torch.ops.strokes import (
     sort_strokes,
 )
 from stroke_derenderer_tpu_torch.parallel.mesh import padded_batch, spmd
+from stroke_derenderer_tpu_torch.utils.profiling import download, upload
 from stroke_derenderer_tpu_torch.weights import (
     from_flax_decoder, from_flax_encoder, from_flax_projection,
     init_projection, init_strokes, read_msgpack,
@@ -94,6 +97,12 @@ def residual_ink(mask: np.ndarray, strokes, tol: int = 2,
     sizes[0] = 0
     resid = (sizes >= min_px)[lab]
     return resid if resid.any() else None
+
+
+def _packed_arg(up: list, k: int):
+    """The first ``k`` uploaded tensors as ``unpack_gid`` takes them: one
+    tensor, or the (starts, vals) pair of a run-length packing."""
+    return up[0] if k == 1 else tuple(up[:k])
 
 
 def normalize_crops(x: torch.Tensor, mean, std,
@@ -279,32 +288,64 @@ class StrokeEstimator:
         for k in range(dp):
             rows = order[k::dp]
             pos[rows] = k * local + np.arange(len(rows))
-        return tokens[torch.from_numpy(pos).to(tokens.device)]
+        return tokens[upload(tokens.device, pos)[0]]
+
+    def _packed_gid(self, gid: np.ndarray, max_groups: int):
+        """A group-id image or stack, its width padded with -1 to a
+        multiple of 256 as the JAX package pads it (even, as the nibble
+        packing needs), packed by ``pack_gid`` -> (list of arrays, fmt)."""
+        w = gid.shape[-1]
+        wb = -(-w // 256) * 256
+        if wb != w:
+            padded = np.full(gid.shape[:-1] + (wb,), -1, np.int16)
+            padded[..., :w] = gid
+            gid = padded
+        packed, fmt = pack_gid(gid, max_groups,
+                               allow_rle=self.config.gid_rle)
+        return (list(packed) if fmt.startswith("rle:") else [packed]), fmt
+
+    @staticmethod
+    def _tokens_down(tokens: torch.Tensor) -> np.ndarray:
+        """Tokens on the device -> int32 on the host, downloaded as int16
+        (the vocabulary fits; half the bytes, as the JAX package downloads
+        its device-partition tokens; its batched path also downloads its
+        ``glyph_bucket`` pad rows, the port only the real ones)."""
+        return download(tokens.to(torch.int16)).astype(np.int32)
 
     @torch.inference_mode()
     def estimate_tokens(self, plan: PartitionPlan,
                         max_length: int | None = None) -> np.ndarray:
-        """One image's partition plan -> (N, max_length) int32 tokens."""
-        coords = tuple(torch.from_numpy(np.ascontiguousarray(
-            getattr(plan, k))).to(self.device)
-            for k in PartitionPlan.COORD_KEYS)
-        gid = torch.from_numpy(plan.gid_img).to(self.device)
+        """One image's partition plan -> (N, max_length) int32 tokens. The
+        packed group-id image and the coordinates go up in one copy (the
+        JAX package pads the coordinates to ``glyph_bucket`` rows first,
+        for its compile cache; the port sends the N real rows)."""
+        n = len(plan.partitions)
+        coords = [getattr(plan, k) for k in PartitionPlan.COORD_KEYS]
         if self.mesh is None:
-            return self._encode_and_decode(gather_crops(gid, coords),
-                                           max_length).cpu().numpy()
+            gid, fmt = self._packed_gid(plan.gid_img, n)
+            up = upload(self.device, *gid, *coords)
+            crops = gather_crops(_packed_arg(up, len(gid)),
+                                 tuple(up[len(gid):]), fmt)
+            return self._tokens_down(self._encode_and_decode(crops,
+                                                             max_length))
+        gid, fmt = self._packed_gid(plan.gid_img[None], n)  # a stack of one
 
         def crops_of(idx):  # the crops of groups ``idx`` of this image
-            ids = torch.from_numpy(idx).to(self.device)
-            return gather_crops_batched(gid[None], torch.zeros_like(ids),
-                                        ids, tuple(c[ids] for c in coords))
+            k = len(gid)
+            up = upload(self.device, *gid, idx.astype(np.int32),
+                        *(c[idx] for c in coords))
+            return gather_crops_batched(
+                _packed_arg(up, k), torch.zeros_like(up[k]), up[k],
+                tuple(up[k + 1:]), fmt)
 
-        return self._sharded_tokens(len(plan.partitions), crops_of,
-                                    max_length).cpu().numpy()
+        return self._tokens_down(self._sharded_tokens(n, crops_of,
+                                                      max_length))
 
     def _plan_batch(self, imgs_bin):
         """Plan a set of images for one crop gather: (plans, counts, rows)
         with ``rows`` None when no image has glyphs, else the group-id
-        images stacked (padded with -1) under "gid" and, for every glyph
+        images stacked (padded with -1), packed, under "gid" (a list of
+        arrays) and "gid_fmt", and, for every glyph
         row in image order, its image ("img_idx"), its image-local id
         ("local_id"), its ink and its ``PartitionPlan.COORD_KEYS``."""
         cfg = self.config
@@ -315,13 +356,16 @@ class StrokeEstimator:
         counts = [len(p.partitions) if p else 0 for p in plans]
         if sum(counts) == 0:
             return plans, counts, None
+        # Width to a multiple of 256 here, so that _packed_gid pads nothing.
         gid_stack = np.full((len(masks), max(m.shape[0] for m in masks),
-                             max(m.shape[1] for m in masks)), -1, np.int16)
+                             -(-max(m.shape[1] for m in masks) // 256) * 256),
+                            -1, np.int16)
         for i, (m, p) in enumerate(zip(masks, plans)):
             if p is not None:
                 gid_stack[i, :m.shape[0], :m.shape[1]] = p.gid_img
         live = [(i, p) for i, p in enumerate(plans) if p is not None]
-        rows = {"gid": gid_stack,
+        gid, fmt = self._packed_gid(gid_stack, max(counts))
+        rows = {"gid": gid, "gid_fmt": fmt,
                 "img_idx": np.concatenate([np.full(counts[i], i, np.int32)
                                            for i, _ in live]),
                 "local_id": np.concatenate([np.arange(counts[i],
@@ -332,14 +376,18 @@ class StrokeEstimator:
             rows[k] = np.concatenate([getattr(p, k) for _, p in live])
         return plans, counts, rows
 
-    def _batch_crops(self, rows: dict, gid: torch.Tensor, idx):
+    def _batch_crops(self, rows: dict, idx):
         """The crops of the glyph rows ``idx`` of :meth:`_plan_batch`'s
-        ``rows``, in one gather on the device (``gid`` its stack there)."""
-        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
-            self.device)
-        return gather_crops_batched(
-            gid, up(rows["img_idx"][idx]), up(rows["local_id"][idx]),
-            tuple(up(rows[k][idx]) for k in PartitionPlan.COORD_KEYS))
+        ``rows``, in one gather on the device; the packed stack and the
+        rows' arrays go up in one copy (the JAX package pads the rows to
+        ``glyph_bucket`` first, for its compile cache; the port sends the
+        real rows)."""
+        k = len(rows["gid"])
+        up = upload(self.device, *rows["gid"], rows["img_idx"][idx],
+                    rows["local_id"][idx],
+                    *(rows[c][idx] for c in PartitionPlan.COORD_KEYS))
+        return gather_crops_batched(_packed_arg(up, k), up[k], up[k + 1],
+                                    tuple(up[k + 2:]), rows["gid_fmt"])
 
     @torch.inference_mode()
     def _gather_batch(self, imgs_bin):
@@ -356,8 +404,7 @@ class StrokeEstimator:
         # order changes no output, and ``inv`` restores it.
         perm = np.argsort(-rows["ink"], kind="stable")
         inv = np.argsort(perm)
-        gid = torch.from_numpy(rows["gid"]).to(self.device)
-        return self._batch_crops(rows, gid, perm), inv, plans, counts
+        return self._batch_crops(rows, perm), inv, plans, counts
 
     def process_tokens(self, tokens: np.ndarray, partitions: list[dict]):
         """Token matrix + partition transforms -> globally sorted strokes."""
@@ -373,12 +420,13 @@ class StrokeEstimator:
         return sort_strokes([s for glyph in per_glyph for s in glyph])
 
     def _host_crops(self, partitions: list[dict]) -> torch.Tensor:
-        """The host partitions' uint8 crops on the device as float32."""
+        """The host partitions' uint8 crops on the device as float32 (the
+        JAX package also uploads its ``glyph_bucket`` pad crops)."""
         if not partitions:
             s = self.config.image_size
             return torch.zeros((0, s, s), device=self.device)
         crops = np.stack([p["image"] for p in partitions]).astype(np.uint8)
-        return torch.from_numpy(crops).to(self.device).float()
+        return upload(self.device, crops)[0].float()
 
     def _host_tokens(self, partitions: list[dict], max_length):
         """Tokens of the host partitions' crops, on the device."""
@@ -394,8 +442,8 @@ class StrokeEstimator:
             partitions = compute_partitions(img_bin, self.config)
             if not partitions:
                 return []
-            preds = self._host_tokens(partitions, max_length)
-            return self.process_tokens(preds.cpu().numpy(), partitions)
+            preds = download(self._host_tokens(partitions, max_length))
+            return self.process_tokens(preds, partitions)
         plan = plan_partitions(np.asarray(img_bin), self.config.margin,
                                self.config.image_size)
         if plan is None:
@@ -426,7 +474,7 @@ class StrokeEstimator:
         out = []
         for preds, inv, plans, counts in pending:
             if preds is not None:
-                preds = preds.cpu().numpy()
+                preds = self._tokens_down(preds)
                 preds = preds if inv is None else preds[inv]
             ofs = 0
             for p, n in zip(plans, counts):
@@ -442,9 +490,8 @@ class StrokeEstimator:
         plans, counts, rows = self._plan_batch(imgs_bin)
         if rows is None:
             return None, None, plans, counts
-        gid = torch.from_numpy(rows["gid"]).to(self.device)
         preds = self._sharded_tokens(
-            sum(counts), lambda idx: self._batch_crops(rows, gid, idx),
+            sum(counts), lambda idx: self._batch_crops(rows, idx),
             max_length, np.argsort(-rows["ink"], kind="stable"))
         return preds, None, plans, counts
 
@@ -456,8 +503,8 @@ class StrokeEstimator:
         counts = [len(p) for p in all_parts]
         if sum(counts) == 0:
             return [[] for _ in imgs_bin]
-        preds = self._host_tokens([p for parts in all_parts for p in parts],
-                                  max_length).cpu().numpy()
+        preds = download(self._host_tokens(
+            [p for parts in all_parts for p in parts], max_length))
         out, ofs = [], 0
         for parts, n in zip(all_parts, counts):
             out.append(self.process_tokens(preds[ofs:ofs + n], parts)

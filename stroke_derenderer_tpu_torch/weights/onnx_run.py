@@ -2,7 +2,8 @@
 
 A copy of the JAX package's ``weights/onnx_run.py``: executes the op set
 :mod:`.graph_export` emits (and the upstream project's five graphs use)
-with torch CPU ops, a stand-in for ONNX Runtime. The tests run every
+with torch CPU ops, a stand-in for ONNX Runtime (:class:`TorchOnnxSession`
+takes ``onnxruntime.InferenceSession``'s place). The tests run every
 exported graph through it and hold its outputs to the port's forwards, a
 check that does not share layout code with the exporter (no flax-layout
 helpers, no :mod:`.graph_import`), so an exporter bug cannot validate
@@ -120,3 +121,23 @@ def run_onnx(path, feeds: dict) -> dict:
         env[k] = torch.from_numpy(np.array(v))
     env = _execute(g, env)
     return {o: env[o].numpy() for o in g.outputs}
+
+
+class TorchOnnxSession:
+    """``onnxruntime.InferenceSession`` drop-in over :func:`run_onnx`'s
+    executor: the graph is parsed once and its initializers converted to
+    tensors once, at construction."""
+
+    def __init__(self, path, providers=None, sess_options=None, **kw):
+        self._graph = read_onnx_graph(path)
+        self._inits = {k: torch.from_numpy(np.array(v))
+                       for k, v in self._graph.initializers.items()}
+
+    def run(self, output_names, feeds: dict) -> list:
+        """The outputs ``output_names`` (all, in graph order, when None) as
+        numpy arrays for the input ``feeds`` {name: array}."""
+        env = dict(self._inits)
+        for k, v in feeds.items():
+            env[k] = torch.from_numpy(np.array(v))
+        env = _execute(self._graph, env)
+        return [env[n].numpy() for n in (output_names or self._graph.outputs)]

@@ -91,7 +91,9 @@ for name in ("kernels.fused_beam", "kernels.decode_attention", "serve",
              "parallel.multihost",
              "eval.run", "eval.metrics", "data.real", "data.synthetic",
              "data.letters", "data.cache", "data.loader", "train.loop",
-             "train.steps", "train.losses", "train.checkpoint"):
+             "train.steps", "train.losses", "train.checkpoint",
+             "utils.profiling", "utils.flops", "utils.logging",
+             "native.cc_native", "native.resize_native"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 import torch

@@ -1,4 +1,4 @@
-"""``chip_smoke.py`` rehearsed on the CPU, all eighteen phases: the card is
+"""``chip_smoke.py`` rehearsed on the CPU, all nineteen phases: the card is
 faked (availability, name, events, ``nvidia-smi``), the device is the CPU,
 the server listens on 127.0.0.1, and the wrappers of
 K1, K2 and K3 run their plain versions (K3's with bfloat16 streams, as on
@@ -15,7 +15,8 @@ shrunk to tiny widths (a one-level UNet, the tiny encoder, a 64 -> 12
 projection). The int8 and two_stage phases drive the CLI on the first 9
 inputs (two chunks of 8), check the int8 convs at three small shapes and
 hold the int8 eval to the bf16 reference's greedy runs, bars open. The
-mesh phase runs its two ranks on the CPU (processes of their own, where
+profile phase runs on the first 3 inputs; its CPU traces hold no device
+track, so the card's busy time is None there. The mesh phase runs its two ranks on the CPU (processes of their own, where
 the K1 and K2 wrappers count their plain runs) on the first 3 inputs, and
 its trainer at tiny widths."""
 
@@ -169,6 +170,7 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(chip_smoke, "JAX_EVAL_INT8",
                         tmp_path / "jax_int8.json")
     monkeypatch.setattr(chip_smoke, "SLICE_INPUTS", 9)
+    monkeypatch.setattr(chip_smoke, "PROFILE_INPUTS", 3)
     monkeypatch.setattr(chip_smoke, "INT8_CONVS", (
         ("unet 3x3", 2, 16, 16, 24, 16, 3, 1, 1, False),
         ("gate 1x1", 2, 16, 16, 24, 8, 1, 1, 0, True),
@@ -236,6 +238,7 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
                              "refine": 45, "onnx": 45, "onnx-variant": 1,
                              "int8": 9, "int8-batch": 1, "two-stage": 2,
                              "two-stage-int8": 2, "two-stage-per-image": 9,
+                             "profile": 9, "profile-batch": 3,
                              "mesh": 2, "mesh-f32": 2, "mesh-int8": 2,
                              "mesh-two-stage": 1}
     assert by_path["K2"].pop("real-beam") >= 2
@@ -281,6 +284,33 @@ def test_chip_smoke_rehearsal(monkeypatch, capsys, tmp_path):
         assert set(r["s_per_image"]) == {"two_stage", "sequential_chunks",
                                          "batch"}
     assert two["per_image"]["against_per_image"]["strokes_identical"] == 9
+    assert all(two[q]["native_calls"]["resize"] == 9
+               and two[q]["native_calls"]["cc"] > 0 for q in ("none", "int8"))
+    # profile: native ops as the plain ones, the ledger per stage (packed
+    # below dense), the timer, no device track on the CPU, FLOPs, K1.
+    prof = record["profile"]
+    assert prof["images"] == 3
+    assert set(prof["native_ms_per_image"]) == {"resize", "cc"}
+    led = prof["ledger_per_image"]
+    assert set(led) == {"per_image_packed", "per_image_dense",
+                        "batch_packed", "batch_dense"}
+    for path in ("per_image", "batch"):
+        assert (led[f"{path}_packed"]["strokes"]["up_bytes"]
+                < led[f"{path}_dense"]["strokes"]["up_bytes"])
+        assert led[f"{path}_packed"]["binarize"] == \
+            led[f"{path}_dense"]["binarize"]
+        assert prof["packed_strokes_as_dense"][path] == 3
+    assert led["per_image_packed"]["strokes"]["up_events"] == 1
+    assert led["batch_packed"]["strokes"]["up_events"] == 1 / 3
+    assert set(prof["busy"]) == {"per_image_binarize", "per_image_strokes",
+                                 "batch_binarize", "batch_strokes"}
+    assert all(b["busy_ms"] is None and b["wall_ms"] > 0
+               and b["trace_bytes"] > 0 for b in prof["busy"].values())
+    assert prof["flops"]["n_glyphs"] > 0 and all(
+        v > 0 for v in prof["flops"]["bf16_peak_share"].values())
+    assert {"binarize", "strokes", "binarize_batch",
+            "strokes_batch"} <= set(prof["timer"])
+    assert prof["k1"]["ok"] and prof["k1"]["B"] > 0
     # onnx: models_demo through ONNX and back gives phase 4's outputs; the
     # variant's K1 and K2 comparisons at its projected and unprojected
     # widths.
