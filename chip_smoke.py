@@ -5,21 +5,31 @@ on one CUDA card.
     python3 chip_smoke.py [--out FILE]
 
 Phases, each printing one line with its seconds; any failure exits
-non-zero and prints no result:
+non-zero and prints no result (``main``'s ``phases`` runs a subset, with
+the phases it needs: the rehearsal's tests split the phases so):
 
 1. device: the card's name and power limit (``nvidia-smi``), the torch and
    CUDA versions. Without a card the script exits 1.
 2. build: the three kernels, K1 (``csrc/fused_decode.cu``), K2
    (``csrc/fused_beam.cu``) and K3 (``csrc/decode_attention.cu``), one
    ``nvcc`` call each, all started together, each with its ``-Xptxas -v``
-   summary (registers and spills of each kernel) and its build seconds.
+   summary (registers, static shared memory and spills of each kernel) and
+   its build seconds; the tensor-core instructions (HMMA) of each kernel
+   by ``cuobjdump -sass``: K1's and K2's bfloat16 instantiations (the
+   tensor-core path of phases A and D) must have them and spill nothing,
+   their float32 ones (CUDA cores, float64) none.
 3. k1: K1 against its plain PyTorch version on the card, with the shipped
    decoder weights (``models_demo``), on encoder sequences of glyph crops
    drawn from a numpy seed at B = 1, 13 and 80, and on the golden image's
    own glyphs. float32 (TF32 off): every row's tokens identical, or the
    plain version's top-2 logit gap at the first differing step below
    ``F32_GAP``. bfloat16: token agreement at least ``BF16_AGREE`` of the
-   positions. Both are timed with CUDA events.
+   positions. Both are timed with CUDA events. Then K1's phase clock on
+   the golden glyphs in bfloat16 (``step_breakdown``: microseconds per
+   step of each phase, the elements the tensor-core path recomputed in
+   float64 and the largest error of its sums as a share of their bound,
+   which must stay below 1, and ``torch.matmul``'s time for the same
+   rows' LSTM and head products as yardsticks).
 4. main: the port's ``cli.run`` with ``models_demo`` on
    ``tests/golden/golden_input.png`` and the inputs of ``data_pseudo_real``,
    writing to a temporary directory. ``run`` must return one result per
@@ -141,7 +151,12 @@ non-zero and prints no result:
    n=50, seed=0)``, greedy, each against the JAX package's CPU run in
    ``tests/golden/jax_cpu_eval.json`` (``scripts/jax_cpu_eval.py``): DTW
    within the JAX run's ``stroke_dtw_ci95``, F1 (and the 1 px F1) within
-   ``EVAL_F1_TOL``, coverage within ``EVAL_COVERAGE_TOL``.
+   ``EVAL_F1_TOL``, coverage within ``EVAL_COVERAGE_TOL``. Then the same
+   three sets through the batched path (``scripts/eval_batched.py``: one
+   ``binarize_images`` and one ``process_images`` per set, so K1 runs at
+   large B, once more per residual pass) against the JAX package's batched
+   CPU runs in ``tests/golden/jax_cpu_eval_batched.json``
+   (``scripts/jax_cpu_eval.py --batched``), with the same bars.
 16. int8: ``--quant int8`` (``ops/quant.py``: im2col and
    ``torch._int_mm``, no kernel of the repo). ``int8_conv2d`` through
    ``layers.conv`` on the card against the same call on the CPU at each
@@ -153,7 +168,9 @@ non-zero and prints no result:
    int8 on the 45 images: K1 once per image with glyphs, the golden mask
    and the masks against phase 4's on at least ``INT8_AGREE``; one
    ``--batch`` run (one K1 launch) and ``--decode beam`` on the golden
-   image (one K2 launch). Then ``evaluate_real`` greedy and
+   image (one K2 launch); K1 and K2 at ``BEAM`` against their plain
+   versions on the int8 encoder's sequences of that batch's glyphs
+   (phase 3's bf16 bar). Then ``evaluate_real`` greedy and
    ``evaluate_full`` mixed with int8, against the JAX package's int8 runs
    in ``tests/golden/jax_cpu_eval_int8.json``: each run must meet every
    bar of phase 15 against one of them, the default run or a variant with
@@ -200,7 +217,9 @@ non-zero and prints no result:
    int8 masks against one rank's int8 run over the same padded batch, each
    on at least ``BATCH_MASK_AGREE`` of the pixels; the golden strokes
    within ``STROKES_CHAMFER_PX``; the two-stage outputs those of the same
-   chunks run in turn (each stage a sub-mesh of one rank). With two cards
+   chunks run in turn (each stage a sub-mesh of one rank); K1 and K2
+   sharded over dp (one launch a rank) against their plain versions on
+   all the glyph rows in bfloat16 (``BF16_AGREE``). With two cards
    or more, greedy bf16 again over ``cuda:0`` and ``cuda:1`` with NCCL.
    Then the trainer in the same ranks: ``MESH_TRAIN_STEPS`` float32 steps
    of each model at ``models_demo``'s widths over the (2, 1) mesh and over
@@ -216,11 +235,15 @@ non-zero and prints no result:
    name and power limit; on one card it is no scaling figure.
 
 K1 and K2 are one cooperative launch each per decode call; phases 3 and 5
-record each launch's grid, its grid barriers per step and the time of one
-grid-wide step, and one line per kernel prints them with the registers and
-spills (K3: its clusters, CTAs per cluster and cluster barriers). Then one
-JSON line with each kernel's launches on each path, one with the kernel
-table (K1, K2, K3; launches summed over the paths) and, last, one JSON line
+record each launch's grid, its grid barriers per step, the time of one
+grid-wide step and the tensor-core path's shared-memory plan, and one line
+per kernel prints them with the registers, spills and HMMA counts (K3: its
+clusters, CTAs per cluster and cluster barriers). Every ``drive_cli`` run
+checks that each K1 and K2 launch took the path of its stream type
+(``engine_launches``: bfloat16 on the tensor cores). Then one JSON line
+with each kernel's launches on each path, one with K1's and K2's launches
+by engine, one with the kernel table (K1, K2, K3; launches summed over the
+paths; printed when phases k1, k2 and k3 ran) and, last, one JSON line
 ``{"ok": true, "device": {...}}``. ``--out`` also writes everything to a
 JSON file.
 """
@@ -266,6 +289,8 @@ SERVE_CONCURRENT = 8       # concurrent /derender requests of phase 12
 SERVE_WINDOW_S = 0.1       # the server's batching window in phase 12
 REAL_DATA = ROOT / "examples" / "real_data"  # phase 15's real-ink pairs
 JAX_EVAL = GOLDEN / "jax_cpu_eval.json"      # phase 15's reference
+# ... and its batched runs' (scripts/jax_cpu_eval.py --batched).
+JAX_EVAL_BATCHED = GOLDEN / "jax_cpu_eval_batched.json"
 EVAL_MIXED_N = 50          # synthetic samples of phase 15's mixed run
 EVAL_F1_TOL = 0.002        # |F1 - JAX| allowed in phase 15
 EVAL_COVERAGE_TOL = 0.03   # |coverage - JAX| allowed in phase 15
@@ -345,9 +370,30 @@ MESH_TRAIN_LR = 3e-4
 MESH_TRAIN_LOSS_TOL = 1e-5   # float32 loss against the single rank's
 F32 = {"compute_dtype": "float32"}
 
+# Phases 3 to 19 by name (1 and 2, device and build, always run), and the
+# phases whose results each uses.
+PHASE_NAMES = ("k1", "main", "k2", "k3", "main-beam", "onnx", "batch",
+               "batch-beam", "fused-binarize", "serve", "real", "train",
+               "eval", "int8", "two_stage", "profile", "mesh")
+NEEDS = {"onnx": ("main",), "batch": ("main",),
+         "batch-beam": ("main", "batch"), "fused-binarize": ("main",),
+         "real": ("main", "main-beam"), "int8": ("main",),
+         "two_stage": ("main", "batch"), "profile": ("main",),
+         "mesh": ("batch",)}
+
 # H100 SXM published peaks (NVIDIA data sheet), used for bound_ms.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+
+def load_script(name: str):
+    """``scripts/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _phase(name: str, t0: float, text: str) -> None:
@@ -435,7 +481,44 @@ def ptxas_summary(text: str) -> list[dict]:
         if m and out:
             last = list(out.values())[-1]
             last.setdefault("registers", int(m.group(1)))
+            m = re.search(r"(\d+) bytes smem", line)
+            last.setdefault("static_smem", int(m.group(1)) if m else 0)
     return list(out.values())
+
+
+def sass_mma_counts(build, name: str) -> dict:
+    """Tensor-core instructions (HMMA) in each kernel of the built library
+    ``name``, from ``cuobjdump -sass`` (beside ``nvcc``)."""
+    tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build.BUILD /
+                                                    f"lib{name}.so")],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.search(r"\bHMMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
+def check_engine_build(record: dict) -> None:
+    """The bfloat16 instantiations of K1 and K2 (the tensor-core path) issue
+    HMMA and spill nothing; the float32 ones (CUDA cores) issue none."""
+    for lib in ("fused_decode", "fused_beam"):
+        mma = record["sass_mma"][lib]
+        bf16 = [f for f in mma if "I13__nv_bfloat16E" in f]
+        f32 = [f for f in mma if "IfEEv" in f]
+        if not bf16 or not f32 or any(mma[f] == 0 for f in bf16) or any(
+                mma[f] for f in f32):
+            raise SystemExit(f"{lib}: HMMA per kernel {mma}")
+        for k in record["build"][lib]["kernels"]:
+            if "I13__nv_bfloat16E" in k["function"] and (
+                    k.get("spill_stores") or k.get("spill_loads")):
+                raise SystemExit(f"{lib}: the tensor-core kernel spills: {k}")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -497,9 +580,12 @@ def launch_shape(mod, name, enc, enc_proj, w, k, ms, steps) -> dict:
     dims = {"B": b, "P": p, "E": e, "A": enc_proj.shape[-1], "H": hdim,
             "D": d, "V": v, "K": k, "max_length": MAX_LENGTH}
     from stroke_derenderer_tpu_torch.kernels import fused_decode
-    grid, _ = fused_decode.launch_grid(name, enc.dtype, dims, enc.device)
+    grid, plan = fused_decode.launch_grid(name, enc.dtype, dims, enc.device)
     return {"grid": grid, "barriers_per_step": mod.BARRIERS_PER_STEP,
-            "step_ms": ms / max(steps, 1)}
+            "step_ms": ms / max(steps, 1),
+            "engine": fused_decode.ENGINES[enc.dtype],
+            "mma_plan": {k: plan[k] for k in ("NT", "KC", "R3", "RH")
+                         if k in (plan or {})}}
 
 
 def weight_bytes(w: dict) -> int:
@@ -698,7 +784,14 @@ PHASES = ("scores", "attend", "lstm", "head", "select")
 def step_breakdown(fd, name: str, decoder, seq, dtype, k: int) -> dict:
     """Where one decode call's time goes: the kernel's phase clock (block 0
     reads the global timer after every grid barrier), as microseconds per
-    step of each phase, its barrier included, averaged over the steps."""
+    step of each phase, its barrier included, averaged over the steps. On
+    the tensor-core path (bfloat16) also the elements it recomputed in
+    float64 and the largest error of its tensor-core sums among them as a
+    share of their bound (below 1, or the bound does not hold), and, as
+    yardsticks (no part of the port), ``torch.matmul``'s microseconds on
+    the card (``kernel_ms``: a CUDA graph of 20 calls) for the LSTM's and
+    the head's products of all B x K rows at once: (rows x LDX) (LDX x 4H)
+    and (rows x H) (H x (A + E + V)) in bfloat16."""
     import torch
     enc = seq.to(dtype).contiguous()
     enc_proj = decoder.project_encoding(enc).contiguous()
@@ -708,24 +801,48 @@ def step_breakdown(fd, name: str, decoder, seq, dtype, k: int) -> dict:
     nph = 4 if k == 1 and name == "fused_decode" else 5
     stamps = torch.zeros(3 + MAX_LENGTH * nph, dtype=torch.int64,
                          device=dev)
+    fixstat = torch.zeros((1024, 2), dtype=torch.int32, device=dev)
     outputs = {"preds": torch.zeros((b, k, MAX_LENGTH), dtype=torch.int32,
                                     device=dev),
                "score_out": torch.zeros((b, k), device=dev),
                "lens_out": torch.zeros((b, k), dtype=torch.int32,
                                        device=dev),
                "stamps": stamps}
+    if fd.ENGINES[dtype] == "mma":
+        outputs["fixstat"] = fixstat
     fd.launch_step_kernel(name, enc, enc_proj, h0, c0,
                           fd.pack_step_weights(w), k, MAX_LENGTH, outputs)
     torch.cuda.synchronize()
     t = stamps.cpu().numpy().astype("float64")
     steps = int((t[3:] > 0).sum()) // nph
     per = (t[3:3 + steps * nph] - t[2:2 + steps * nph]).reshape(steps, nph)
+    rows = b * k
+    hdim, (v, d) = w["wh"].shape[0], w["emb"].shape
+    ldx = -(-(d + enc.shape[-1]) // 16) * 16 + -(-hdim // 16) * 16
+    x = torch.ones((rows, ldx), dtype=torch.bfloat16, device=dev)
+    wx = torch.ones((ldx, 4 * hdim), dtype=torch.bfloat16, device=dev)
+    hx = torch.ones((rows, hdim), dtype=torch.bfloat16, device=dev)
+    wh = torch.ones((hdim, w["watt"].shape[1] + w["wf"].shape[1] + v),
+                    dtype=torch.bfloat16, device=dev)
+    fs = fixstat.cpu()
     return {"kernel": name, "dtype": str(dtype).split(".")[-1], "B": b,
-            "K": k, "steps": steps, "setup_us": (t[1] - t[0]) / 1e3,
+            "K": k, "engine": fd.ENGINES[dtype], "steps": steps,
+            "setup_us": (t[1] - t[0]) / 1e3,
             "prologue_us": (t[2] - t[1]) / 1e3,
             "step_us": float(per.sum(1).mean()) / 1e3,
             "phase_us": {PHASES[i]: float(per[:, i].mean()) / 1e3
-                         for i in range(nph)}}
+                         for i in range(nph)},
+            "rechecked": int(fs[:, 0].sum()),
+            "max_err_over_bound": float(fs[:, 1].view(torch.float32).max()),
+            "lstm_matmul_us": 1e3 * kernel_ms(lambda: x @ wx),
+            "head_matmul_us": 1e3 * kernel_ms(lambda: hx @ wh)}
+
+
+def check_breakdown(rec: dict) -> None:
+    """The tensor-core path's error bound held wherever it was checked."""
+    if rec["max_err_over_bound"] >= 1.0:
+        raise SystemExit(f"{rec['kernel']}: a tensor-core sum missed its "
+                         f"bound: {rec}")
 
 
 def barrier_cost(fd, grid: int, dev) -> dict:
@@ -1128,8 +1245,10 @@ def drive_cli(cli, read_png, imgs, binarizer, estimator, counters,
     or a runner of the same signature) on the images with every module's
     ``launch_count`` in ``counters`` set to 0 just before and read just
     after; the checks of phases 4, 7, 8, 9 and 10 (the golden mask against
-    the expected one on at least ``mask_agree`` of its pixels). Returns the
-    record and, per image, its mask (bool) and strokes as written."""
+    the expected one on at least ``mask_agree`` of its pixels), and that
+    every K1 and K2 launch took the path of the estimator's stream type
+    (``check_engines``). Returns the record and, per image, its mask (bool)
+    and strokes as written."""
     import numpy as np
     import torch
     runner = runner or cli.run
@@ -1137,6 +1256,7 @@ def drive_cli(cli, read_png, imgs, binarizer, estimator, counters,
     with tempfile.TemporaryDirectory() as out:
         for mod in counters.values():
             mod.launch_count = 0
+        before = engine_counts(counters)
         captured = io.StringIO()
         t_run = time.monotonic()
         with contextlib.redirect_stdout(captured):
@@ -1144,6 +1264,8 @@ def drive_cli(cli, read_png, imgs, binarizer, estimator, counters,
         torch.cuda.synchronize()
         t_run = time.monotonic() - t_run
         launches = {name: mod.launch_count for name, mod in counters.items()}
+        engines = check_engines(runner.__name__, counters, before, launches,
+                                estimator.compute_dtype)
         text = captured.getvalue()
         if done != len(imgs):
             print(text)
@@ -1174,7 +1296,8 @@ def drive_cli(cli, read_png, imgs, binarizer, estimator, counters,
                                            text)]
     rec = {
         "images": len(imgs), "images_with_glyphs": with_glyphs,
-        "launches": launches, "golden_mask_agree": golden_agree,
+        "launches": launches, "engines": engines,
+        "golden_mask_agree": golden_agree,
         "golden_mask_differing_px": int((got != want).sum()),
         "golden_strokes_chamfer_px": chamfer(strokes, expected),
         "run_s": t_run}
@@ -1187,6 +1310,30 @@ def drive_cli(cli, read_png, imgs, binarizer, estimator, counters,
         raise SystemExit(f"golden mask agreement {golden_agree} < "
                          f"{mask_agree}")
     return rec, outputs
+
+
+def engine_counts(counters: dict) -> dict:
+    """K1's and K2's launches by path so far (``engine_launches``)."""
+    return {name: dict(counters[name].engine_launches)
+            for name in ("K1", "K2")}
+
+
+def check_engines(label: str, counters: dict, before: dict, launches: dict,
+                  dtype) -> dict:
+    """The K1 and K2 launches since ``before`` by path; every one of them
+    must have taken the path of the stream type ``dtype``
+    (``fused_decode.ENGINES``: bfloat16 on the tensor cores, float32 on CUDA
+    cores in float64), as many as ``launches`` counted."""
+    want = counters["K1"].ENGINES[dtype]
+    now = engine_counts(counters)
+    got = {name: {e: now[name][e] - before[name][e] for e in now[name]}
+           for name in now}
+    for name, by_path in got.items():
+        if by_path[want] != launches[name] or sum(by_path.values()) != \
+                launches[name]:
+            raise SystemExit(f"{label}: {name} launches by path {by_path}, "
+                             f"expected all {launches[name]} on {want}")
+    return got
 
 
 def mask_diff(masks: dict, ref: dict) -> dict:
@@ -1772,6 +1919,27 @@ def int8_phase(cli, read_png, imgs, main_out, counters, dev, binarizer,
             or rec["beam"]["launches"] != {"K1": 0, "K2": 1, "K3": 0}):
         raise SystemExit(f"int8 launches: batch {rec['batch']['launches']},"
                          f" beam {rec['beam']['launches']}")
+    # K1 and K2 against their plain versions on the int8 encoder's
+    # sequences of the batched run's glyphs (bfloat16 streams).
+    from stroke_derenderer_tpu_torch.kernels import fused_beam as fb
+    from stroke_derenderer_tpu_torch.kernels import fused_decode as fd
+    from stroke_derenderer_tpu_torch.models.encoder import encode_postprocess
+    with torch.inference_mode():
+        crops = q_est._gather_batch([qb_out[name][0]
+                                     for _, name in imgs])[0]
+        seq = encode_postprocess(q_est.encoder(q_est._normalize_raw(crops)),
+                                 q_est.config.encode_image_size)
+        rec["kernels"] = [
+            compare_k1(fd, q_est.decoder, seq, torch.bfloat16,
+                       "int8 batched"),
+            compare_k2(fb, q_est.decoder, seq, torch.bfloat16,
+                       "int8 batched", plain_once=True)]
+    for c in rec["kernels"]:
+        print(json.dumps({k: c[k] for k in ("case", "B", "agree", "ok",
+                                            "ms") if k in c}), flush=True)
+    if not all(c["ok"] for c in rec["kernels"]):
+        raise SystemExit(f"int8: K1 or K2 disagrees with its plain version: "
+                         f"{rec['kernels']}")
     # The evaluator against the JAX package's int8 runs on the CPU: its
     # default run and its runs with the normalization statistics summed in
     # another float32 order (``variants``), each as valid a reference.
@@ -2214,6 +2382,7 @@ def mesh_rank(paths, setup, train_dir, full: bool, settings: dict) -> dict:
             "decode": "beam", "beam_size": BEAM},
             masks=runs["greedy"]["masks"])
         runs["tp"] = _mesh_run(cli, tp2, imgs, strokes=False)
+        out["decode_check"] = _mesh_decode_check(cli, dp2, imgs)
         runs["int8"] = _mesh_run(cli, dp2, imgs, {"quant": "int8"},
                                  {"quant": "int8"})
         b, e = cli.initialize_sessions(MODELS, mesh=dp2, se_overrides={
@@ -2247,6 +2416,45 @@ def mesh_rank(paths, setup, train_dir, full: bool, settings: dict) -> dict:
             for key in ("masks", "strokes", "tokens"):
                 rec.pop(key, None)
     return out
+
+
+def _mesh_decode_check(cli, mesh, imgs) -> dict:
+    """K1 and K2 through the dp mesh in bfloat16 against their plain
+    versions: every rank builds the same glyph rows of ``imgs``, decodes its
+    dp share in one launch of each (``fused_greedy_decode_sharded``,
+    ``fused_beam_decode_sharded`` at ``BEAM``), and the gathered tokens of
+    all the rows are held to the plain versions' on all of them."""
+    import torch
+    from stroke_derenderer_tpu_torch.config import PAD
+    from stroke_derenderer_tpu_torch.kernels import fused_beam as fb
+    from stroke_derenderer_tpu_torch.kernels import fused_decode as fd
+    from stroke_derenderer_tpu_torch.models.encoder import encode_postprocess
+    b, e = cli.initialize_sessions(MODELS, device=mesh.device,
+                                   se_overrides={"max_length": MAX_LENGTH})
+    dec = e.decoder
+    with torch.inference_mode():
+        masks = [m[:, :, 0] > 127 for m in b.binarize_images(imgs)]
+        seq = encode_postprocess(
+            e.encoder(e._normalize_raw(e._gather_batch(masks)[0])),
+            e.config.encode_image_size).to(torch.bfloat16).contiguous()
+        n, dp = seq.shape[0], mesh.shape["dp"]
+        batch = -(-n // dp) * dp
+        local = seq[mesh.rows(batch)]
+        k1 = fd.fused_greedy_decode_sharded(dec, local, MAX_LENGTH, mesh,
+                                            batch)[:n]
+        k2 = fb.fused_beam_decode_sharded(dec, local, MAX_LENGTH, mesh,
+                                          batch, BEAM)[:n]
+        ep = dec.project_encoding(seq).contiguous()
+        h0, c0 = (t.contiguous() for t in dec.init_state(seq))
+        w = dec.weights(torch.bfloat16)
+        ref1 = fd.fused_greedy_decode_plain(seq, ep, h0, c0, w, MAX_LENGTH)
+        ref2 = fb.select_beam(*fb.fused_beam_decode_plain(
+            seq, ep, h0, c0, w, MAX_LENGTH, BEAM))
+    decoded = (k2 != PAD) | (ref2 != PAD)
+    return {"rows": n, "k1_agree": float((k1 == ref1).float().mean()),
+            "k1_rows_identical": int((k1 == ref1).all(1).sum()),
+            "k2_agree": float((k2 == ref2)[decoded].double().mean()),
+            "k2_rows_identical": int((k2 == ref2).all(1).sum())}
 
 
 def _digest(tensors: dict) -> str:
@@ -2333,6 +2541,12 @@ def mesh_phase(cli, paths, imgs, batch_out, q_binarizer, binarizer,
                          f"{MESH_DEVICES}")
     rec["backend"] = rec["backend"][0]
     got = ranks[0]["runs"]
+    # K1 and K2 sharded over dp against their plain versions (bf16).
+    rec["decode_check"] = [r["decode_check"] for r in ranks]
+    if not all(c["k1_agree"] >= BF16_AGREE and c["k2_agree"] >= BF16_AGREE
+               for c in rec["decode_check"]):
+        raise SystemExit(f"mesh: K1 or K2 sharded over dp disagrees with "
+                         f"its plain version: {rec['decode_check']}")
     by_name = lambda masks: dict(zip(names, masks))
     batched = {n: batch_out[n][0] for n in names}
     # Launches: one K1 (K2 for beam) per rank per batch; the two-stage run
@@ -2496,7 +2710,26 @@ def _leaves(tree, path=""):
         yield path, tree
 
 
-def main(argv=None) -> int:
+def phase_closure(phases) -> set:
+    """The phases a run takes: ``phases`` (all of ``PHASE_NAMES`` when None)
+    and, recursively, the phases whose results they use (``NEEDS``)."""
+    todo = set(PHASE_NAMES if phases is None else phases)
+    unknown = todo - set(PHASE_NAMES)
+    if unknown:
+        raise ValueError(f"unknown phases {sorted(unknown)}")
+    grown = True
+    while grown:
+        more = {n for p in todo for n in NEEDS.get(p, ())} - todo
+        todo |= more
+        grown = bool(more)
+    return todo
+
+
+def main(argv=None, phases=None) -> int:
+    """The smoke run. ``phases`` (for the rehearsal's tests, which split the
+    phases over two test files; the command line runs all): the phases 3
+    to 19 to run, by name, and with them the phases whose results they use;
+    the kernel table is printed when phases k1, k2 and k3 ran."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None,
                         help="also write the full record to this JSON file")
@@ -2546,16 +2779,39 @@ def main(argv=None) -> int:
         print(build.BUILD_LOG[name]["ptxas"])
         for k in record["build"][name]["kernels"]:
             print(json.dumps({"lib": name} | k))
+    record["sass_mma"] = {name: sass_mma_counts(build, name)
+                          for name in ("fused_decode", "fused_beam")}
+    print(json.dumps({"hmma_per_kernel": record["sass_mma"]}))
+    check_engine_build(record)
     _phase("build", t0, ", ".join(
         f"{name} {build.BUILD_LOG[name]['seconds']:.2f} s" for name in LIBS)
         + f" with {build.find_nvcc()}")
 
-    # 3. K1 against its plain version ---------------------------------------
-    t0 = time.monotonic()
+    # Set-up the phases share: the sessions, the glyph sequences of phases
+    # 3, 5 and 6, the inputs of phase 4 on.
+    todo = phase_closure(phases)
     binarizer, estimator = cli.initialize_sessions(
         MODELS, device=dev, se_overrides={"max_length": MAX_LENGTH})
+    _, beam_estimator = cli.initialize_sessions(
+        MODELS, device=dev, se_overrides={"decode": "beam",
+                                          "beam_size": BEAM,
+                                          "max_length": MAX_LENGTH})
+    if todo & {"int8", "two_stage", "mesh"}:
+        q_bin = {"quant": "int8"}
+        q_se = {"max_length": MAX_LENGTH, "quant": "int8"}
+        q_binarizer, q_estimator = cli.initialize_sessions(
+            MODELS, device=dev, se_overrides=q_se, bin_overrides=q_bin)
+        _, q_beam = cli.initialize_sessions(
+            MODELS, device=dev, bin_overrides=q_bin,
+            se_overrides=q_se | {"decode": "beam", "beam_size": BEAM})
     decoder = estimator.decoder
-    checks = []
+    counters = {"K1": fd, "K2": fb, "K3": da}
+    inputs = [GOLDEN / "golden_input.png"] + sorted(
+        p for p in PSEUDO.glob("*.png") if not p.stem.endswith("_BINARIZED"))
+    imgs = cli.load_images(inputs)
+    if len(imgs) != len(inputs):
+        raise SystemExit(f"loaded {len(imgs)} of {len(inputs)} inputs")
+    slice_imgs = imgs[:SLICE_INPUTS]
     seqs = {}
     with torch.inference_mode():
         rng = np.random.default_rng(0)
@@ -2575,596 +2831,699 @@ def main(argv=None) -> int:
             seqs[label] = encode_postprocess(
                 estimator.encoder(estimator._normalize_raw(crops)),
                 estimator.config.encode_image_size)
-        for label in [f"synthetic B={b}" for b in K1_BATCHES] + ["golden"]:
-            for dtype in (torch.float32, torch.bfloat16):
-                rec = compare_k1(fd, decoder, seqs[label], dtype, label)
-                checks.append(rec)
-                print(json.dumps({k: rec[k] for k in (
-                    "case", "dtype", "B", "agree", "rows_identical", "ok",
-                    "ms", "plain_ms", "bound_ms", "stream_bound_ms",
-                    "steps_max", "grid", "barriers_per_step", "step_ms")
-                    if k in rec}
-                    | ({"max_gap": rec["max_gap_at_first_difference"]}
-                       if "max_gap_at_first_difference" in rec else {})),
-                    flush=True)
-    record["k1"] = checks
-    bad = [c for c in checks if not c["ok"]]
-    if bad:
-        raise SystemExit(f"K1 disagrees with its plain version: {bad}")
-    with torch.inference_mode():
-        golden = pick(checks, "golden", "bfloat16")
-        record["barrier"] = barrier_cost(fd, golden["grid"], dev)
-        record["k1_breakdown"] = step_breakdown(
-            fd, "fused_decode", decoder, seqs["golden"], torch.bfloat16, 1)
-    print(json.dumps(record["barrier"]), flush=True)
-    print(json.dumps(record["k1_breakdown"]), flush=True)
-    _phase("k1", t0, f"{len(checks)} comparisons passed (f32 gap < "
-           f"{F32_GAP}, bf16 agreement >= {BF16_AGREE})")
+
+    # 3. K1 against its plain version ---------------------------------------
+    if "k1" in todo:
+        t0 = time.monotonic()
+        checks = []
+        with torch.inference_mode():
+            for label in [f"synthetic B={b}" for b in K1_BATCHES] + ["golden"]:
+                for dtype in (torch.float32, torch.bfloat16):
+                    rec = compare_k1(fd, decoder, seqs[label], dtype, label)
+                    checks.append(rec)
+                    print(json.dumps({k: rec[k] for k in (
+                        "case", "dtype", "B", "agree", "rows_identical", "ok",
+                        "ms", "plain_ms", "bound_ms", "stream_bound_ms",
+                        "steps_max", "grid", "barriers_per_step", "step_ms")
+                        if k in rec}
+                        | ({"max_gap": rec["max_gap_at_first_difference"]}
+                           if "max_gap_at_first_difference" in rec else {})),
+                        flush=True)
+        record["k1"] = checks
+        bad = [c for c in checks if not c["ok"]]
+        if bad:
+            raise SystemExit(f"K1 disagrees with its plain version: {bad}")
+        with torch.inference_mode():
+            golden = pick(checks, "golden", "bfloat16")
+            record["barrier"] = barrier_cost(fd, golden["grid"], dev)
+            record["k1_breakdown"] = step_breakdown(
+                fd, "fused_decode", decoder, seqs["golden"], torch.bfloat16, 1)
+        print(json.dumps(record["barrier"]), flush=True)
+        print(json.dumps(record["k1_breakdown"]), flush=True)
+        check_breakdown(record["k1_breakdown"])
+        _phase("k1", t0, f"{len(checks)} comparisons passed (f32 gap < "
+               f"{F32_GAP}, bf16 agreement >= {BF16_AGREE})")
 
     # 4. main path ---------------------------------------------------------
-    t0 = time.monotonic()
-    inputs = [GOLDEN / "golden_input.png"] + sorted(
-        p for p in PSEUDO.glob("*.png") if not p.stem.endswith("_BINARIZED"))
-    imgs = cli.load_images(inputs)
-    if len(imgs) != len(inputs):
-        raise SystemExit(f"loaded {len(imgs)} of {len(inputs)} inputs")
-    counters = {"K1": fd, "K2": fb, "K3": da}
-    main_rec, main_out = drive_cli(cli, read_png, imgs, binarizer, estimator,
-                                   counters)
-    record["main"] = main_rec
-    launches = main_rec["launches"]["K1"]
-    if launches == 0 or launches != main_rec["images_with_glyphs"]:
-        raise SystemExit(f"K1 launched {launches} times on the main path; "
-                         f"{main_rec['images_with_glyphs']} images have "
-                         f"glyphs")
-    _phase("main", t0, f"{len(imgs)} images, {launches} K1 launches, golden "
-           f"mask agreement {main_rec['golden_mask_agree']:.6f}")
+    if "main" in todo:
+        t0 = time.monotonic()
+        main_rec, main_out = drive_cli(cli, read_png, imgs, binarizer,
+                                       estimator,
+                                       counters)
+        record["main"] = main_rec
+        launches = main_rec["launches"]["K1"]
+        if launches == 0 or launches != main_rec["images_with_glyphs"]:
+            raise SystemExit(f"K1 launched {launches} times on the main path; "
+                             f"{main_rec['images_with_glyphs']} images have "
+                             f"glyphs")
+        _phase("main", t0, f"{len(imgs)} images, {launches} K1 launches, "
+               f"golden "
+               f"mask agreement {main_rec['golden_mask_agree']:.6f}")
 
     # 5. K2 against its plain version ---------------------------------------
-    t0 = time.monotonic()
-    k2_checks = []
-    with torch.inference_mode():
-        for label in ("golden", f"synthetic B={K2_BATCH}"):
+    if "k2" in todo:
+        t0 = time.monotonic()
+        k2_checks = []
+        with torch.inference_mode():
+            for label in ("golden", f"synthetic B={K2_BATCH}"):
+                for dtype in (torch.float32, torch.bfloat16):
+                    rec = compare_k2(fb, decoder, seqs[label], dtype, label)
+                    k2_checks.append(rec)
+                    print(json.dumps({k: rec[k] for k in (
+                        "case", "dtype", "B", "K", "agree", "images_identical",
+                        "ok", "ms", "plain_ms", "bound_ms", "stream_bound_ms",
+                        "steps_max", "max_gap_at_first_difference",
+                        "score_max_rel_err", "grid", "barriers_per_step",
+                        "step_ms") if k in rec}), flush=True)
+                rec = compare_beam_of_one(fb, fd, decoder, seqs[label], label)
+                k2_checks.append(rec)
+                print(json.dumps(rec), flush=True)
+            # A beam above the old kernel's limit of 16, on the golden glyphs.
             for dtype in (torch.float32, torch.bfloat16):
-                rec = compare_k2(fb, decoder, seqs[label], dtype, label)
+                rec = compare_k2(fb, decoder, seqs["golden"], dtype, "golden",
+                                 BIG_BEAM)
                 k2_checks.append(rec)
                 print(json.dumps({k: rec[k] for k in (
                     "case", "dtype", "B", "K", "agree", "images_identical",
-                    "ok", "ms", "plain_ms", "bound_ms", "stream_bound_ms",
-                    "steps_max", "max_gap_at_first_difference",
-                    "score_max_rel_err", "grid", "barriers_per_step",
-                    "step_ms") if k in rec}), flush=True)
-            rec = compare_beam_of_one(fb, fd, decoder, seqs[label], label)
-            k2_checks.append(rec)
-            print(json.dumps(rec), flush=True)
-        # A beam above the old kernel's limit of 16, on the golden glyphs.
-        for dtype in (torch.float32, torch.bfloat16):
-            rec = compare_k2(fb, decoder, seqs["golden"], dtype, "golden",
-                             BIG_BEAM)
-            k2_checks.append(rec)
-            print(json.dumps({k: rec[k] for k in (
-                "case", "dtype", "B", "K", "agree", "images_identical", "ok",
-                "ms", "plain_ms", "max_gap_at_first_difference",
-                "score_max_rel_err", "grid", "step_ms") if k in rec}),
-                flush=True)
-    record["k2"] = k2_checks
-    bad = [c for c in k2_checks if not c["ok"]]
-    if bad:
-        raise SystemExit(f"K2 disagrees with its plain version or K1: {bad}")
-    with torch.inference_mode():
-        record["k2_breakdown"] = step_breakdown(
-            fd, "fused_beam", decoder, seqs["golden"], torch.bfloat16, BEAM)
-    print(json.dumps(record["k2_breakdown"]), flush=True)
-    _phase("k2", t0, f"{len(k2_checks)} comparisons passed (f32 gap < "
-           f"{F32_GAP}, score rtol {SCORE_RTOL}, bf16 agreement >= "
-           f"{BF16_AGREE})")
+                    "ok",
+                    "ms", "plain_ms", "max_gap_at_first_difference",
+                    "score_max_rel_err", "grid", "step_ms") if k in rec}),
+                    flush=True)
+        record["k2"] = k2_checks
+        bad = [c for c in k2_checks if not c["ok"]]
+        if bad:
+            raise SystemExit(f"K2 disagrees with its plain version or K1: "
+                             f"{bad}")
+        with torch.inference_mode():
+            record["k2_breakdown"] = step_breakdown(
+                fd, "fused_beam", decoder, seqs["golden"], torch.bfloat16,
+                BEAM)
+        print(json.dumps(record["k2_breakdown"]), flush=True)
+        check_breakdown(record["k2_breakdown"])
+        _phase("k2", t0, f"{len(k2_checks)} comparisons passed (f32 gap < "
+               f"{F32_GAP}, score rtol {SCORE_RTOL}, bf16 agreement >= "
+               f"{BF16_AGREE})")
 
     # 6. K3 against its plain version, and the fused-attention entry -------
-    t0 = time.monotonic()
-    k3_checks = []
-    with torch.inference_mode():
-        rb, rp = K3_RAGGED
-        seqs[f"ragged B={rb} P={rp}"] = seqs[
-            f"synthetic B={max(K3_BATCHES)}"][:rb, :rp]
-        for label in ([f"synthetic B={b}" for b in K3_BATCHES]
-                      + ["golden", f"ragged B={rb} P={rp}"]):
-            rec = compare_k3(da, decoder, seqs[label], label)
-            k3_checks.append(rec)
-            print(json.dumps(rec), flush=True)
-        golden = pick(k3_checks, "golden")
-        record["cluster_barrier"] = [
-            cluster_barrier_cost(
-                da, c, golden["ms_by_cluster"][str(c)]["clusters_on_card"],
-                dev)
-            for c in K3_CLUSTERS]
-        for rec in record["cluster_barrier"]:
-            print(json.dumps(rec), flush=True)
-        for dtype in (torch.float32, torch.bfloat16):
-            rec = compare_fused_greedy(da, decoder, seqs["golden"], dtype)
-            k3_checks.append(rec)
-            print(json.dumps(rec), flush=True)
-    record["k3"] = k3_checks
-    bad = [c for c in k3_checks if not c["ok"]]
-    if bad:
-        raise SystemExit(f"K3 disagrees with its plain version: {bad}")
-    _phase("k3", t0, f"{len(k3_checks)} comparisons passed (atol {K3_ATOL} "
-           f"+ rtol {K3_RTOL}; entry: K1's bars, one launch per step)")
+    if "k3" in todo:
+        t0 = time.monotonic()
+        k3_checks = []
+        with torch.inference_mode():
+            rb, rp = K3_RAGGED
+            seqs[f"ragged B={rb} P={rp}"] = seqs[
+                f"synthetic B={max(K3_BATCHES)}"][:rb, :rp]
+            for label in ([f"synthetic B={b}" for b in K3_BATCHES]
+                          + ["golden", f"ragged B={rb} P={rp}"]):
+                rec = compare_k3(da, decoder, seqs[label], label)
+                k3_checks.append(rec)
+                print(json.dumps(rec), flush=True)
+            golden = pick(k3_checks, "golden")
+            record["cluster_barrier"] = [
+                cluster_barrier_cost(
+                    da, c, golden["ms_by_cluster"][str(c)]["clusters_on_card"],
+                    dev)
+                for c in K3_CLUSTERS]
+            for rec in record["cluster_barrier"]:
+                print(json.dumps(rec), flush=True)
+            for dtype in (torch.float32, torch.bfloat16):
+                rec = compare_fused_greedy(da, decoder, seqs["golden"], dtype)
+                k3_checks.append(rec)
+                print(json.dumps(rec), flush=True)
+        record["k3"] = k3_checks
+        bad = [c for c in k3_checks if not c["ok"]]
+        if bad:
+            raise SystemExit(f"K3 disagrees with its plain version: {bad}")
+        _phase("k3", t0, f"{len(k3_checks)} comparisons passed (atol "
+               f"{K3_ATOL} "
+               f"+ rtol {K3_RTOL}; entry: K1's bars, one launch per step)")
 
     # 7. main path with --decode beam ---------------------------------------
-    t0 = time.monotonic()
-    _, beam_estimator = cli.initialize_sessions(
-        MODELS, device=dev, se_overrides={"decode": "beam",
-                                          "beam_size": BEAM,
-                                          "max_length": MAX_LENGTH})
-    beam_rec, beam_out = drive_cli(cli, read_png, imgs, binarizer,
-                                   beam_estimator, counters)
-    record["main_beam"] = beam_rec
-    beam_launches = beam_rec["launches"]["K2"]
-    if (beam_launches == 0
-            or beam_launches != beam_rec["images_with_glyphs"]
-            or beam_rec["launches"]["K1"] != 0):
-        raise SystemExit(f"launches on the beam path: "
-                         f"{beam_rec['launches']}; "
-                         f"{beam_rec['images_with_glyphs']} images have "
-                         f"glyphs")
-    _phase("main-beam", t0, f"{len(imgs)} images, {beam_launches} K2 "
-           f"launches, golden beam strokes chamfer "
-           f"{beam_rec['golden_strokes_chamfer_px']:.3f} px")
+    if "main-beam" in todo:
+        t0 = time.monotonic()
+        beam_rec, beam_out = drive_cli(cli, read_png, imgs, binarizer,
+                                       beam_estimator, counters)
+        record["main_beam"] = beam_rec
+        beam_launches = beam_rec["launches"]["K2"]
+        if (beam_launches == 0
+                or beam_launches != beam_rec["images_with_glyphs"]
+                or beam_rec["launches"]["K1"] != 0):
+            raise SystemExit(f"launches on the beam path: "
+                             f"{beam_rec['launches']}; "
+                             f"{beam_rec['images_with_glyphs']} images have "
+                             f"glyphs")
+        _phase("main-beam", t0, f"{len(imgs)} images, {beam_launches} K2 "
+               f"launches, golden beam strokes chamfer "
+               f"{beam_rec['golden_strokes_chamfer_px']:.3f} px")
 
     # 8. the upstream project's ONNX model directory -------------------------
-    t0 = time.monotonic()
-    onnx_rec = onnx_phase(cli, read_png, load_image, imgs, main_out,
-                          counters, dev)
-    record["onnx"] = onnx_rec
-    print(json.dumps({k: onnx_rec[k] for k in (
-        "export_s", "export_bytes", "import_s", "variant_round_trip_s",
-        "variant_binarize", "variant_process_image")}
-        | {"per_image": onnx_rec["cli"]["per_image"],
-           "golden_strokes_chamfer_px": onnx_rec["cli"][
-               "golden_strokes_chamfer_px"]}), flush=True)
-    _phase("onnx", t0, f"models_demo exported in {onnx_rec['export_s']:.2f} "
-           f"s ({sum(onnx_rec['export_bytes'].values())} bytes) and imported "
-           f"bit for bit; {onnx_rec['cli']['launches']['K1']} K1 launches "
-           f"over {len(imgs)} images, "
-           f"{onnx_rec['cli']['per_image']['strokes_identical']} strokes "
-           f"files as phase 4's; the variant round trip, binarize and "
-           f"{len(onnx_rec['checks'])} K1/K2 comparisons passed")
+    if "onnx" in todo:
+        t0 = time.monotonic()
+        onnx_rec = onnx_phase(cli, read_png, load_image, imgs, main_out,
+                              counters, dev)
+        record["onnx"] = onnx_rec
+        print(json.dumps({k: onnx_rec[k] for k in (
+            "export_s", "export_bytes", "import_s", "variant_round_trip_s",
+            "variant_binarize", "variant_process_image")}
+            | {"per_image": onnx_rec["cli"]["per_image"],
+               "golden_strokes_chamfer_px": onnx_rec["cli"][
+                   "golden_strokes_chamfer_px"]}), flush=True)
+        _phase("onnx", t0, f"models_demo exported in "
+               f"{onnx_rec['export_s']:.2f} "
+               f"s ({sum(onnx_rec['export_bytes'].values())} bytes) and "
+               f"imported "
+               f"bit for bit; {onnx_rec['cli']['launches']['K1']} K1 launches "
+               f"over {len(imgs)} images, "
+               f"{onnx_rec['cli']['per_image']['strokes_identical']} strokes "
+               f"files as phase 4's; the variant round trip, binarize and "
+               f"{len(onnx_rec['checks'])} K1/K2 comparisons passed")
 
     # 9. cross-image batch, greedy ------------------------------------------
-    t0 = time.monotonic()
-    batch_rec, batch_out = drive_cli(cli, read_png, imgs, binarizer,
-                                     estimator, counters, cli.run_batched)
-    batch_rec["per_image"] = against_per_image(batch_out, main_out)
-    record["batch"] = batch_rec
-    check_batched("batch", batch_rec, {"K1": 1, "K2": 0, "K3": 0})
-    print(json.dumps({"batched_s_per_image": {
-        k: batch_rec[k] for k in ("binarize_s_per_image",
-                                  "strokes_s_per_image")},
-        "per_image_s_per_image": {
-        k: main_rec[k] for k in ("binarize_s_per_image",
-                                 "strokes_s_per_image")}}), flush=True)
-    batch_k1 = []
-    with torch.inference_mode():
-        batch_masks = [batch_out[name][0] for _, name in imgs]
-        crops, batch_inv, _, batch_counts = estimator._gather_batch(
-            batch_masks)
-        seqs["batched"] = encode_postprocess(
-            estimator.encoder(estimator._normalize_raw(crops)),
-            estimator.config.encode_image_size)
-        batch_rec["rows_against_alone"] = batch_vs_per_image(
-            fd, estimator, batch_masks, crops, seqs["batched"], batch_inv)
-        del crops
-        print(json.dumps({"rows_against_alone": batch_rec[
-            "rows_against_alone"]}), flush=True)
-        for dtype in (torch.float32, torch.bfloat16):
-            rec = compare_k1(fd, decoder, seqs["batched"], dtype, "batched")
-            rec["step_us"] = rec["step_ms"] * 1e3
-            batch_k1.append(rec)
-            print(json.dumps({k: rec[k] for k in (
-                "case", "dtype", "B", "agree", "rows_identical", "ok", "ms",
-                "plain_ms", "bound_ms", "bound_by", "stream_bound_ms",
-                "steps_max", "steps_sum", "step_us", "grid")}
-                | ({"max_gap": rec["max_gap_at_first_difference"]}
-                   if "max_gap_at_first_difference" in rec else {})),
-                flush=True)
-        record["k1_batched_breakdown"] = step_breakdown(
-            fd, "fused_decode", decoder, seqs["batched"], torch.bfloat16, 1)
-        batch_rec["k1_ms"] = {"one_launch": batch_k1[1]["ms"],
-                              "per_image_launches": per_image_launches_ms(
-                                  fd, fb, decoder, seqs["batched"],
-                                  batch_inv, batch_counts, 1)}
-    print(json.dumps(record["k1_batched_breakdown"]), flush=True)
-    print(json.dumps({"k1_ms_bfloat16": batch_rec["k1_ms"]}), flush=True)
-    record["k1_batched"] = batch_k1
-    bad = [c for c in batch_k1 if not c["ok"]]
-    if bad:
-        raise SystemExit(f"K1 at the batched shape disagrees with its plain "
-                         f"version: {bad}")
-    _phase("batch", t0, f"{len(imgs)} images, one K1 launch over "
-           f"{seqs['batched'].shape[0]} glyphs, masks against per-image "
-           f"{batch_rec['per_image']['agree']:.6f} "
-           f"({batch_rec['per_image']['differing_px']} px differ), golden "
-           f"strokes chamfer {batch_rec['golden_strokes_chamfer_px']:.3f} px")
+    if "batch" in todo:
+        t0 = time.monotonic()
+        batch_rec, batch_out = drive_cli(cli, read_png, imgs, binarizer,
+                                         estimator, counters, cli.run_batched)
+        batch_rec["per_image"] = against_per_image(batch_out, main_out)
+        record["batch"] = batch_rec
+        check_batched("batch", batch_rec, {"K1": 1, "K2": 0, "K3": 0})
+        print(json.dumps({"batched_s_per_image": {
+            k: batch_rec[k] for k in ("binarize_s_per_image",
+                                      "strokes_s_per_image")},
+            "per_image_s_per_image": {
+            k: main_rec[k] for k in ("binarize_s_per_image",
+                                     "strokes_s_per_image")}}), flush=True)
+        batch_k1 = []
+        with torch.inference_mode():
+            batch_masks = [batch_out[name][0] for _, name in imgs]
+            crops, batch_inv, _, batch_counts = estimator._gather_batch(
+                batch_masks)
+            seqs["batched"] = encode_postprocess(
+                estimator.encoder(estimator._normalize_raw(crops)),
+                estimator.config.encode_image_size)
+            batch_rec["rows_against_alone"] = batch_vs_per_image(
+                fd, estimator, batch_masks, crops, seqs["batched"], batch_inv)
+            del crops
+            print(json.dumps({"rows_against_alone": batch_rec[
+                "rows_against_alone"]}), flush=True)
+            for dtype in (torch.float32, torch.bfloat16):
+                rec = compare_k1(fd, decoder, seqs["batched"], dtype,
+                                 "batched")
+                rec["step_us"] = rec["step_ms"] * 1e3
+                batch_k1.append(rec)
+                print(json.dumps({k: rec[k] for k in (
+                    "case", "dtype", "B", "agree", "rows_identical", "ok",
+                    "ms",
+                    "plain_ms", "bound_ms", "bound_by", "stream_bound_ms",
+                    "steps_max", "steps_sum", "step_us", "grid")}
+                    | ({"max_gap": rec["max_gap_at_first_difference"]}
+                       if "max_gap_at_first_difference" in rec else {})),
+                    flush=True)
+            record["k1_batched_breakdown"] = step_breakdown(
+                fd, "fused_decode", decoder, seqs["batched"],
+                torch.bfloat16, 1)
+            batch_rec["k1_ms"] = {"one_launch": batch_k1[1]["ms"],
+                                  "per_image_launches": per_image_launches_ms(
+                                      fd, fb, decoder, seqs["batched"],
+                                      batch_inv, batch_counts, 1)}
+        print(json.dumps(record["k1_batched_breakdown"]), flush=True)
+        check_breakdown(record["k1_batched_breakdown"])
+        print(json.dumps({"k1_ms_bfloat16": batch_rec["k1_ms"]}), flush=True)
+        record["k1_batched"] = batch_k1
+        bad = [c for c in batch_k1 if not c["ok"]]
+        if bad:
+            raise SystemExit(f"K1 at the batched shape disagrees with its "
+                             f"plain "
+                             f"version: {bad}")
+        _phase("batch", t0, f"{len(imgs)} images, one K1 launch over "
+               f"{seqs['batched'].shape[0]} glyphs, masks against per-image "
+               f"{batch_rec['per_image']['agree']:.6f} "
+               f"({batch_rec['per_image']['differing_px']} px differ), golden "
+               f"strokes chamfer {batch_rec['golden_strokes_chamfer_px']:.3f} "
+               f"px")
 
     # 10. cross-image batch, beam --------------------------------------------
-    t0 = time.monotonic()
-    bbeam_rec, bbeam_out = drive_cli(cli, read_png, imgs, binarizer,
-                                     beam_estimator, counters,
-                                     cli.run_batched)
-    bbeam_rec["per_image"] = against_per_image(bbeam_out, main_out)
-    record["batch_beam"] = bbeam_rec
-    check_batched("batch-beam", bbeam_rec, {"K1": 0, "K2": 1, "K3": 0})
-    batch_k2 = []
-    with torch.inference_mode():
-        for dtype in (torch.float32, torch.bfloat16):
-            rec = compare_k2(fb, decoder, seqs["batched"], dtype, "batched",
-                             plain_once=True)
-            rec["step_us"] = rec["step_ms"] * 1e3
-            batch_k2.append(rec)
-            print(json.dumps({k: rec[k] for k in (
-                "case", "dtype", "B", "K", "agree", "images_identical", "ok",
-                "ms", "plain_ms", "bound_ms", "bound_by", "stream_bound_ms",
-                "steps_max", "steps_sum", "step_us", "grid",
-                "max_gap_at_first_difference", "score_max_rel_err")
-                if k in rec}), flush=True)
-        record["k2_batched_breakdown"] = step_breakdown(
-            fd, "fused_beam", decoder, seqs["batched"], torch.bfloat16, BEAM)
-        bbeam_rec["k2_ms"] = {"one_launch": batch_k2[1]["ms"],
-                              "per_image_launches": per_image_launches_ms(
-                                  fd, fb, decoder, seqs["batched"],
-                                  batch_inv, batch_counts, BEAM)}
-    print(json.dumps(record["k2_batched_breakdown"]), flush=True)
-    print(json.dumps({"k2_ms_bfloat16": bbeam_rec["k2_ms"]}), flush=True)
-    record["k2_batched"] = batch_k2
-    bad = [c for c in batch_k2 if not c["ok"]]
-    if bad:
-        raise SystemExit(f"K2 at the batched shape disagrees with its plain "
-                         f"version: {bad}")
-    _phase("batch-beam", t0, f"{len(imgs)} images, one K2 launch over "
-           f"{seqs['batched'].shape[0] * BEAM} beams, golden strokes chamfer "
-           f"{bbeam_rec['golden_strokes_chamfer_px']:.3f} px")
+    if "batch-beam" in todo:
+        t0 = time.monotonic()
+        bbeam_rec, bbeam_out = drive_cli(cli, read_png, imgs, binarizer,
+                                         beam_estimator, counters,
+                                         cli.run_batched)
+        bbeam_rec["per_image"] = against_per_image(bbeam_out, main_out)
+        record["batch_beam"] = bbeam_rec
+        check_batched("batch-beam", bbeam_rec, {"K1": 0, "K2": 1, "K3": 0})
+        batch_k2 = []
+        with torch.inference_mode():
+            for dtype in (torch.float32, torch.bfloat16):
+                rec = compare_k2(fb, decoder, seqs["batched"], dtype,
+                                 "batched",
+                                 plain_once=True)
+                rec["step_us"] = rec["step_ms"] * 1e3
+                batch_k2.append(rec)
+                print(json.dumps({k: rec[k] for k in (
+                    "case", "dtype", "B", "K", "agree", "images_identical",
+                    "ok",
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "stream_bound_ms",
+                    "steps_max", "steps_sum", "step_us", "grid",
+                    "max_gap_at_first_difference", "score_max_rel_err")
+                    if k in rec}), flush=True)
+            record["k2_batched_breakdown"] = step_breakdown(
+                fd, "fused_beam", decoder, seqs["batched"], torch.bfloat16,
+                BEAM)
+            bbeam_rec["k2_ms"] = {"one_launch": batch_k2[1]["ms"],
+                                  "per_image_launches": per_image_launches_ms(
+                                      fd, fb, decoder, seqs["batched"],
+                                      batch_inv, batch_counts, BEAM)}
+        print(json.dumps(record["k2_batched_breakdown"]), flush=True)
+        check_breakdown(record["k2_batched_breakdown"])
+        print(json.dumps({"k2_ms_bfloat16": bbeam_rec["k2_ms"]}), flush=True)
+        record["k2_batched"] = batch_k2
+        bad = [c for c in batch_k2 if not c["ok"]]
+        if bad:
+            raise SystemExit(f"K2 at the batched shape disagrees with its "
+                             f"plain "
+                             f"version: {bad}")
+        _phase("batch-beam", t0, f"{len(imgs)} images, one K2 launch over "
+               f"{seqs['batched'].shape[0] * BEAM} beams, golden strokes "
+               f"chamfer "
+               f"{bbeam_rec['golden_strokes_chamfer_px']:.3f} px")
 
     # 11. fused binarize ------------------------------------------------------
-    t0 = time.monotonic()
-    raw = [img for img, _ in imgs]
-    fused_calls = []
-    fused_batch = binarizer._fused_batch
-    binarizer._fused_batch = lambda b, plan: (
-        fused_calls.append(len(b)) or fused_batch(b, plan))
-    try:
-        default, default_ms = event_ms(lambda: binarizer.binarize_images(raw))
-        calls_default = list(fused_calls)
-        binarizer.fused = True
-        fused, fused_ms = event_ms(lambda: binarizer.binarize_images(raw))
-    finally:
-        binarizer.fused = False
-        del binarizer._fused_batch
-    as_masks = lambda bins: {name: b[:, :, 0] > 0
-                             for b, (_, name) in zip(bins, imgs)}
-    per_image = {n: m for n, (m, _) in main_out.items()}
-    fused_rec = {
-        "images": len(imgs), "default_ms": default_ms, "fused_ms": fused_ms,
-        "fused_program_calls": {"default": len(calls_default),
-                                "fused": len(fused_calls) - len(
-                                    calls_default)},
-        "fused_program_images": {"default": sum(calls_default),
-                                 "fused": sum(fused_calls)
-                                 - sum(calls_default)},
-        "fused_vs_default": mask_diff(as_masks(fused), as_masks(default)),
-        "fused_vs_per_image": mask_diff(as_masks(fused), per_image),
-        "default_vs_per_image": mask_diff(as_masks(default), per_image)}
-    record["fused_binarize"] = fused_rec
-    print(json.dumps(fused_rec), flush=True)
-    worst = min(fused_rec[k]["agree"] for k in (
-        "fused_vs_default", "fused_vs_per_image", "default_vs_per_image"))
-    if worst < BATCH_MASK_AGREE or fused_rec["fused_program_images"][
-            "fused"] != len(imgs):
-        raise SystemExit(f"fused binarize: {fused_rec}")
-    _phase("fused-binarize", t0, f"{len(imgs)} images through the device "
-           f"cut and stitch, agreement >= {worst:.6f}")
+    if "fused-binarize" in todo:
+        t0 = time.monotonic()
+        raw = [img for img, _ in imgs]
+        fused_calls = []
+        fused_batch = binarizer._fused_batch
+        binarizer._fused_batch = lambda b, plan: (
+            fused_calls.append(len(b)) or fused_batch(b, plan))
+        try:
+            default, default_ms = event_ms(
+                lambda: binarizer.binarize_images(raw))
+            calls_default = list(fused_calls)
+            binarizer.fused = True
+            fused, fused_ms = event_ms(lambda: binarizer.binarize_images(raw))
+        finally:
+            binarizer.fused = False
+            del binarizer._fused_batch
+        as_masks = lambda bins: {name: b[:, :, 0] > 0
+                                 for b, (_, name) in zip(bins, imgs)}
+        per_image = {n: m for n, (m, _) in main_out.items()}
+        fused_rec = {
+            "images": len(imgs), "default_ms": default_ms,
+            "fused_ms": fused_ms,
+            "fused_program_calls": {"default": len(calls_default),
+                                    "fused": len(fused_calls) - len(
+                                        calls_default)},
+            "fused_program_images": {"default": sum(calls_default),
+                                     "fused": sum(fused_calls)
+                                     - sum(calls_default)},
+            "fused_vs_default": mask_diff(as_masks(fused), as_masks(default)),
+            "fused_vs_per_image": mask_diff(as_masks(fused), per_image),
+            "default_vs_per_image": mask_diff(as_masks(default), per_image)}
+        record["fused_binarize"] = fused_rec
+        print(json.dumps(fused_rec), flush=True)
+        worst = min(fused_rec[k]["agree"] for k in (
+            "fused_vs_default", "fused_vs_per_image", "default_vs_per_image"))
+        if worst < BATCH_MASK_AGREE or fused_rec["fused_program_images"][
+                "fused"] != len(imgs):
+            raise SystemExit(f"fused binarize: {fused_rec}")
+        _phase("fused-binarize", t0, f"{len(imgs)} images through the device "
+               f"cut and stitch, agreement >= {worst:.6f}")
 
     # 12. the HTTP server ----------------------------------------------------
-    t0 = time.monotonic()
-    serve_rec = drive_server(serve, encode_png, imgs, binarizer, estimator,
-                             counters)
-    record["serve"] = serve_rec
-    print(json.dumps(serve_rec), flush=True)
-    biggest = max(int(k) for k in serve_rec["batch_size_hist"])
-    k1_served = serve_rec["launches"]["K1"]
-    if (biggest < 2 or not 0 < k1_served < serve_rec["derender_requests"]
-            or not serve_rec["svg_ok"] or serve_rec[
-                "golden_strokes_chamfer_px"] > STROKES_CHAMFER_PX):
-        raise SystemExit(f"server: {serve_rec}")
-    lat = serve_rec["latency_s"]
-    _phase("serve", t0, f"{serve_rec['requests']} requests answered, "
-           f"batches {serve_rec['batch_size_hist']}, {k1_served} K1 "
-           f"launches for {serve_rec['derender_requests']} /derender; "
-           f"binarize p50/p90 {lat['binarize']['p50']}/"
-           f"{lat['binarize']['p90']} s, strokes "
-           f"{lat['strokes']['p50']}/{lat['strokes']['p90']} s")
+    if "serve" in todo:
+        t0 = time.monotonic()
+        serve_rec = drive_server(serve, encode_png, imgs, binarizer, estimator,
+                                 counters)
+        record["serve"] = serve_rec
+        print(json.dumps(serve_rec), flush=True)
+        biggest = max(int(k) for k in serve_rec["batch_size_hist"])
+        k1_served = serve_rec["launches"]["K1"]
+        if (biggest < 2 or not 0 < k1_served < serve_rec["derender_requests"]
+                or not serve_rec["svg_ok"] or serve_rec[
+                    "golden_strokes_chamfer_px"] > STROKES_CHAMFER_PX):
+            raise SystemExit(f"server: {serve_rec}")
+        lat = serve_rec["latency_s"]
+        _phase("serve", t0, f"{serve_rec['requests']} requests answered, "
+               f"batches {serve_rec['batch_size_hist']}, {k1_served} K1 "
+               f"launches for {serve_rec['derender_requests']} /derender; "
+               f"binarize p50/p90 {lat['binarize']['p50']}/"
+               f"{lat['binarize']['p90']} s, strokes "
+               f"{lat['strokes']['p50']}/{lat['strokes']['p90']} s")
 
     # 13. --preset real: residual re-decode ----------------------------------
-    t0 = time.monotonic()
-    from stroke_derenderer_tpu_torch.pipeline import strokes as pipe
-    real_args = ["-models", str(MODELS), "--preset", "real"]
-    real_ov = cli.strokes_overrides(cli.parse_args(real_args))
-    real_ov["max_length"] = MAX_LENGTH
-    _, real_est = cli.initialize_sessions(MODELS, device=dev,
-                                          se_overrides=real_ov)
-    passes = real_est.config.redecode_passes
-    tol = real_est.config.redecode_tol
-    host_names = ("residual_ink", "merge_stroke_fragments", "refine_strokes")
-    real_rec = {"passes": passes, "redecode_coverage":
-                real_est.config.redecode_coverage}
-    with host_timers(pipe, host_names) as spent:
-        rec, real_out = drive_cli(cli, read_png, imgs, binarizer, real_est,
-                                  counters)
-    rec["host_s"] = spent
-    real_rec["per_image"] = rec
-    with host_timers(pipe, host_names) as spent:
-        rec, breal_out = drive_cli(cli, read_png, imgs, binarizer, real_est,
-                                   counters, cli.run_batched)
-    rec["host_s"] = spent
-    rec["per_image_run"] = against_per_image(breal_out, real_out)
-    real_rec["batched"] = rec
-    _, real_beam_est = cli.initialize_sessions(
-        MODELS, device=dev, se_overrides=cli.strokes_overrides(
-            cli.parse_args(real_args + ["--decode", "beam", "--beam-size",
-                                        str(BEAM)])) | {
-            "max_length": MAX_LENGTH})
-    with host_timers(pipe, host_names) as spent:
-        rec, rbeam_out = drive_cli(cli, read_png, imgs[:1], binarizer,
-                                   real_beam_est, counters)
-    rec["host_s"] = spent
-    real_rec["beam"] = rec
-    refine_ov = cli.strokes_overrides(cli.parse_args(
-        ["-models", str(MODELS), "--refine", str(REFINE_PX)]))
-    _, refine_est = cli.initialize_sessions(
-        MODELS, device=dev, se_overrides=refine_ov | {
-            "max_length": MAX_LENGTH})
-    with host_timers(pipe, host_names) as spent:
-        rec, _ = drive_cli(cli, read_png, imgs, binarizer, refine_est,
-                           counters)
-    rec["host_s"] = spent
-    real_rec["refine"] = rec
-    golden_img = imgs[0][0]
-    real_rec["golden_coverage"] = {
-        "main": golden_coverage(main_out, golden_img, tol),
-        "real": golden_coverage(real_out, golden_img, tol),
-        "main-beam": golden_coverage(beam_out, golden_img, tol),
-        "real-beam": golden_coverage(rbeam_out, golden_img, tol),
-        "batch-real": golden_coverage(breal_out, golden_img, tol)}
-    # K1 against its plain version on the rows of the first residual pass
-    # of the batched run (the residuals of its masks after one pass).
-    with torch.inference_mode():
-        breal_masks = [breal_out[name][0] for _, name in imgs]
-        first = real_est._process_images_once(breal_masks, MAX_LENGTH)
-        resids = [r for r in (real_est._residual_for(m, s)
-                              for m, s in zip(breal_masks, first))
-                  if r is not None]
-        crops = real_est._gather_batch(resids)[0]
-        seqs["residual"] = encode_postprocess(
-            real_est.encoder(real_est._normalize_raw(crops)),
-            real_est.config.encode_image_size)
-        del crops
-        residual_k1 = [compare_k1(fd, decoder, seqs["residual"], dtype,
-                                  "residual") for dtype in (torch.float32,
-                                                            torch.bfloat16)]
-    real_rec["residual_images"] = len(resids)
-    real_rec["k1_residual"] = [{k: c[k] for k in (
-        "case", "dtype", "B", "agree", "rows_identical", "ok", "ms",
-        "plain_ms", "bound_ms", "steps_max") if k in c} | (
-        {"max_gap": c["max_gap_at_first_difference"]}
-        if "max_gap_at_first_difference" in c else {}) for c in residual_k1]
-    record["real"] = real_rec
-    summary = {run: {
-        "ms_per_image_binarize": 1e3 * real_rec[run]["binarize_s_per_image"],
-        "ms_per_image_strokes": 1e3 * real_rec[run]["strokes_s_per_image"],
-        "launches": real_rec[run]["launches"],
-        "host_s": {n: v["s"] for n, v in real_rec[run]["host_s"].items()},
-        "run_s": real_rec[run]["run_s"]}
-        for run in ("per_image", "batched", "beam", "refine")}
-    print(json.dumps({"real": summary, "golden_coverage": real_rec[
-        "golden_coverage"], "batched_against_per_image": real_rec[
-        "batched"]["per_image_run"], "residual_images": len(resids)}),
-        flush=True)
-    for c in real_rec["k1_residual"]:
-        print(json.dumps(c), flush=True)
-    with_glyphs = real_rec["per_image"]["images_with_glyphs"]
-    k1_real = real_rec["per_image"]["launches"]["K1"]
-    k1_breal = real_rec["batched"]["launches"]["K1"]
-    k2_rbeam = real_rec["beam"]["launches"]["K2"]
-    cover = real_rec["golden_coverage"]
-    if not with_glyphs + 1 <= k1_real <= with_glyphs * (1 + passes):
-        raise SystemExit(f"real: {k1_real} K1 launches for {with_glyphs} "
-                         f"images with glyphs and {passes} passes")
-    if not 2 <= k1_breal <= 1 + passes:
-        raise SystemExit(f"batch-real: {k1_breal} K1 launches, expected one "
-                         f"per pass (2 to {1 + passes})")
-    if k2_rbeam < 2 or real_rec["beam"]["launches"]["K1"] != 0:
-        raise SystemExit(f"real-beam: launches {real_rec['beam']['launches']}")
-    if cover["real"] < cover["main"] or cover["real-beam"] < cover[
-            "main-beam"]:
-        raise SystemExit(f"real: the golden strokes cover less ink with the "
-                         f"residual passes: {cover}")
-    if real_rec["refine"]["launches"]["K1"] != with_glyphs:
-        raise SystemExit(f"refine: launches {real_rec['refine']['launches']}")
-    bad = [c for c in residual_k1 if not c["ok"]]
-    if bad:
-        raise SystemExit(f"K1 on the residual rows disagrees with its plain "
-                         f"version: {real_rec['k1_residual']}")
-    _phase("real", t0, f"K1 launches {k1_real} per image ({with_glyphs} "
-           f"images with glyphs), {k1_breal} batched, K2 {k2_rbeam} on the "
-           f"golden image; golden coverage {cover['main']:.4f} -> "
-           f"{cover['real']:.4f} (beam {cover['main-beam']:.4f} -> "
-           f"{cover['real-beam']:.4f}); K1 on {seqs['residual'].shape[0]} "
-           f"residual rows passed")
+    if "real" in todo:
+        t0 = time.monotonic()
+        from stroke_derenderer_tpu_torch.pipeline import strokes as pipe
+        real_args = ["-models", str(MODELS), "--preset", "real"]
+        real_ov = cli.strokes_overrides(cli.parse_args(real_args))
+        real_ov["max_length"] = MAX_LENGTH
+        _, real_est = cli.initialize_sessions(MODELS, device=dev,
+                                              se_overrides=real_ov)
+        passes = real_est.config.redecode_passes
+        tol = real_est.config.redecode_tol
+        host_names = ("residual_ink", "merge_stroke_fragments",
+                      "refine_strokes")
+        real_rec = {"passes": passes, "redecode_coverage":
+                    real_est.config.redecode_coverage}
+        with host_timers(pipe, host_names) as spent:
+            rec, real_out = drive_cli(cli, read_png, imgs, binarizer, real_est,
+                                      counters)
+        rec["host_s"] = spent
+        real_rec["per_image"] = rec
+        with host_timers(pipe, host_names) as spent:
+            rec, breal_out = drive_cli(cli, read_png, imgs, binarizer,
+                                       real_est,
+                                       counters, cli.run_batched)
+        rec["host_s"] = spent
+        rec["per_image_run"] = against_per_image(breal_out, real_out)
+        real_rec["batched"] = rec
+        _, real_beam_est = cli.initialize_sessions(
+            MODELS, device=dev, se_overrides=cli.strokes_overrides(
+                cli.parse_args(real_args + ["--decode", "beam", "--beam-size",
+                                            str(BEAM)])) | {
+                "max_length": MAX_LENGTH})
+        with host_timers(pipe, host_names) as spent:
+            rec, rbeam_out = drive_cli(cli, read_png, imgs[:1], binarizer,
+                                       real_beam_est, counters)
+        rec["host_s"] = spent
+        real_rec["beam"] = rec
+        refine_ov = cli.strokes_overrides(cli.parse_args(
+            ["-models", str(MODELS), "--refine", str(REFINE_PX)]))
+        _, refine_est = cli.initialize_sessions(
+            MODELS, device=dev, se_overrides=refine_ov | {
+                "max_length": MAX_LENGTH})
+        with host_timers(pipe, host_names) as spent:
+            rec, _ = drive_cli(cli, read_png, imgs, binarizer, refine_est,
+                               counters)
+        rec["host_s"] = spent
+        real_rec["refine"] = rec
+        golden_img = imgs[0][0]
+        real_rec["golden_coverage"] = {
+            "main": golden_coverage(main_out, golden_img, tol),
+            "real": golden_coverage(real_out, golden_img, tol),
+            "main-beam": golden_coverage(beam_out, golden_img, tol),
+            "real-beam": golden_coverage(rbeam_out, golden_img, tol),
+            "batch-real": golden_coverage(breal_out, golden_img, tol)}
+        # K1 against its plain version on the rows of the first residual pass
+        # of the batched run (the residuals of its masks after one pass).
+        with torch.inference_mode():
+            breal_masks = [breal_out[name][0] for _, name in imgs]
+            first = real_est._process_images_once(breal_masks, MAX_LENGTH)
+            resids = [r for r in (real_est._residual_for(m, s)
+                                  for m, s in zip(breal_masks, first))
+                      if r is not None]
+            crops = real_est._gather_batch(resids)[0]
+            seqs["residual"] = encode_postprocess(
+                real_est.encoder(real_est._normalize_raw(crops)),
+                real_est.config.encode_image_size)
+            del crops
+            residual_k1 = [compare_k1(fd, decoder, seqs["residual"], dtype,
+                                      "residual")
+                           for dtype in (torch.float32, torch.bfloat16)]
+        real_rec["residual_images"] = len(resids)
+        real_rec["k1_residual"] = [{k: c[k] for k in (
+            "case", "dtype", "B", "agree", "rows_identical", "ok", "ms",
+            "plain_ms", "bound_ms", "steps_max") if k in c} | (
+            {"max_gap": c["max_gap_at_first_difference"]}
+            if "max_gap_at_first_difference" in c else {})
+            for c in residual_k1]
+        record["real"] = real_rec
+        summary = {run: {
+            "ms_per_image_binarize": 1e3 * real_rec[run][
+                "binarize_s_per_image"],
+            "ms_per_image_strokes": 1e3 * real_rec[run]["strokes_s_per_image"],
+            "launches": real_rec[run]["launches"],
+            "host_s": {n: v["s"] for n, v in real_rec[run]["host_s"].items()},
+            "run_s": real_rec[run]["run_s"]}
+            for run in ("per_image", "batched", "beam", "refine")}
+        print(json.dumps({"real": summary, "golden_coverage": real_rec[
+            "golden_coverage"], "batched_against_per_image": real_rec[
+            "batched"]["per_image_run"], "residual_images": len(resids)}),
+            flush=True)
+        for c in real_rec["k1_residual"]:
+            print(json.dumps(c), flush=True)
+        with_glyphs = real_rec["per_image"]["images_with_glyphs"]
+        k1_real = real_rec["per_image"]["launches"]["K1"]
+        k1_breal = real_rec["batched"]["launches"]["K1"]
+        k2_rbeam = real_rec["beam"]["launches"]["K2"]
+        cover = real_rec["golden_coverage"]
+        if not with_glyphs + 1 <= k1_real <= with_glyphs * (1 + passes):
+            raise SystemExit(f"real: {k1_real} K1 launches for {with_glyphs} "
+                             f"images with glyphs and {passes} passes")
+        if not 2 <= k1_breal <= 1 + passes:
+            raise SystemExit(f"batch-real: {k1_breal} K1 launches, expected "
+                             f"one "
+                             f"per pass (2 to {1 + passes})")
+        if k2_rbeam < 2 or real_rec["beam"]["launches"]["K1"] != 0:
+            raise SystemExit(f"real-beam: launches "
+                             f"{real_rec['beam']['launches']}")
+        if cover["real"] < cover["main"] or cover["real-beam"] < cover[
+                "main-beam"]:
+            raise SystemExit(f"real: the golden strokes cover less ink with "
+                             f"the "
+                             f"residual passes: {cover}")
+        if real_rec["refine"]["launches"]["K1"] != with_glyphs:
+            raise SystemExit(f"refine: launches "
+                             f"{real_rec['refine']['launches']}")
+        bad = [c for c in residual_k1 if not c["ok"]]
+        if bad:
+            raise SystemExit(f"K1 on the residual rows disagrees with its "
+                             f"plain "
+                             f"version: {real_rec['k1_residual']}")
+        _phase("real", t0, f"K1 launches {k1_real} per image ({with_glyphs} "
+               f"images with glyphs), {k1_breal} batched, K2 {k2_rbeam} on "
+               f"the "
+               f"golden image; golden coverage {cover['main']:.4f} -> "
+               f"{cover['real']:.4f} (beam {cover['main-beam']:.4f} -> "
+               f"{cover['real-beam']:.4f}); K1 on {seqs['residual'].shape[0]} "
+               f"residual rows passed")
 
     # 14. the trainer ---------------------------------------------------------
-    t0 = time.monotonic()
-    train_rec = train_phase(cli, counters, dev)
-    k1_train = train_rec["cli"]["launches"]["K1"]
-    _phase("train", t0, "losses within the JAX reference's bars; steps/s "
-           + ", ".join(f"{k} {train_rec['rates'][k]['steps_per_s']:.2f} "
-                       f"(loader wait {train_rec['rates'][k]['wait_share']:.0%})"
-                       for k in ("binarizer", "captioner", "captioner-cache"))
-           + f"; resumed at {train_rec['resume_start_steps']}; the exported "
-           f"dir served with {k1_train} K1 launch")
-    record["train"] = train_rec
+    if "train" in todo:
+        t0 = time.monotonic()
+        train_rec = train_phase(cli, counters, dev)
+        k1_train = train_rec["cli"]["launches"]["K1"]
+        _phase("train", t0, "losses within the JAX reference's bars; steps/s "
+               + ", ".join(f"{k} {train_rec['rates'][k]['steps_per_s']:.2f} "
+                           f"(loader wait "
+                           f"{train_rec['rates'][k]['wait_share']:.0%})"
+                           for k in ("binarizer", "captioner",
+                                     "captioner-cache"))
+               + f"; resumed at {train_rec['resume_start_steps']}; the "
+                 f"exported "
+               f"dir served with {k1_train} K1 launch")
+        record["train"] = train_rec
 
     # 15. the evaluator against the JAX package's CPU run ---------------------
-    t0 = time.monotonic()
-    from stroke_derenderer_tpu_torch.eval import run as eval_run
-    reference = json.loads(JAX_EVAL.read_text())["runs"]
-    eval_runs = {
-        "real_greedy": lambda: eval_run.evaluate_real(
-            MODELS, REAL_DATA, se_overrides={"max_length": MAX_LENGTH},
-            device=dev),
-        "real_redecode": lambda: eval_run.evaluate_real(
-            MODELS, REAL_DATA, se_overrides={"max_length": MAX_LENGTH,
-                                             "redecode_coverage": 0.9},
-            device=dev),
-        "mixed_greedy": lambda: eval_run.evaluate_full(
-            MODELS, n=EVAL_MIXED_N, seed=0, style="mixed",
-            se_overrides={"max_length": MAX_LENGTH}, device=dev)}
-    for mod in counters.values():
-        mod.launch_count = 0
-    eval_rec = {name: eval_against(name, fn, {"default": reference})
-                for name, fn in eval_runs.items()}
-    misses = [m for r in eval_rec.values() for m in r["misses"]["default"]]
-    eval_launches = {name: mod.launch_count for name, mod in counters.items()}
-    record["eval"] = eval_rec | {"launches": eval_launches}
-    if misses:
-        raise SystemExit("eval against the JAX CPU reference: "
-                         + "; ".join(misses))
-    if eval_launches["K1"] == 0:
-        raise SystemExit(f"eval: launches {eval_launches}")
-    _phase("eval", t0, f"{len(eval_runs)} runs within the JAX CPU "
-           f"reference's bars (DTW ci95, F1 {EVAL_F1_TOL}, coverage "
-           f"{EVAL_COVERAGE_TOL}), {eval_launches['K1']} K1 launches")
+    if "eval" in todo:
+        t0 = time.monotonic()
+        from stroke_derenderer_tpu_torch.eval import run as eval_run
+        reference = json.loads(JAX_EVAL.read_text())["runs"]
+        eval_runs = {
+            "real_greedy": lambda: eval_run.evaluate_real(
+                MODELS, REAL_DATA, se_overrides={"max_length": MAX_LENGTH},
+                device=dev),
+            "real_redecode": lambda: eval_run.evaluate_real(
+                MODELS, REAL_DATA, se_overrides={"max_length": MAX_LENGTH,
+                                                 "redecode_coverage": 0.9},
+                device=dev),
+            "mixed_greedy": lambda: eval_run.evaluate_full(
+                MODELS, n=EVAL_MIXED_N, seed=0, style="mixed",
+                se_overrides={"max_length": MAX_LENGTH}, device=dev)}
+        for mod in counters.values():
+            mod.launch_count = 0
+        eval_rec = {name: eval_against(name, fn, {"default": reference})
+                    for name, fn in eval_runs.items()}
+        misses = [m for r in eval_rec.values() for m in r["misses"]["default"]]
+        eval_launches = {name: mod.launch_count
+                         for name, mod in counters.items()}
+        record["eval"] = eval_rec | {"launches": eval_launches}
+        if misses:
+            raise SystemExit("eval against the JAX CPU reference: "
+                             + "; ".join(misses))
+        if eval_launches["K1"] == 0:
+            raise SystemExit(f"eval: launches {eval_launches}")
+        # The same sets through the batched path: one binarize_images and one
+        # process_images per set (scripts/eval_batched.py), so K1 runs once per
+        # set at large B (redecode: once more per residual pass), against the
+        # JAX package's batched CPU runs.
+        eb = load_script("eval_batched")
+        pkg = "stroke_derenderer_tpu_torch"
+        batched_runs = {
+            "real_greedy": lambda: eb.evaluate_real_batched(
+                pkg, MODELS, REAL_DATA, {"max_length": MAX_LENGTH}, dev),
+            "real_redecode": lambda: eb.evaluate_real_batched(
+                pkg, MODELS, REAL_DATA, {"max_length": MAX_LENGTH,
+                                         "redecode_coverage": 0.9}, dev),
+            "mixed_greedy": lambda: eb.evaluate_full_batched(
+                pkg, MODELS, n=EVAL_MIXED_N, seed=0, style="mixed",
+                se_overrides={"max_length": MAX_LENGTH}, device=dev)}
+        batched_ref = json.loads(JAX_EVAL_BATCHED.read_text())["runs"]
+        for mod in counters.values():
+            mod.launch_count = 0
+        batched_rec = {name: eval_against(name, fn, {"default": batched_ref})
+                       for name, fn in batched_runs.items()}
+        misses = [m for r in batched_rec.values()
+                  for m in r["misses"]["default"]]
+        batched_launches = {name: mod.launch_count
+                            for name, mod in counters.items()}
+        record["eval_batched"] = batched_rec | {"launches": batched_launches}
+        if misses:
+            raise SystemExit("batched eval against the JAX CPU reference: "
+                             + "; ".join(misses))
+        if not len(batched_runs) <= batched_launches["K1"] <= len(
+                batched_runs) + 3 or batched_launches["K2"]:
+            raise SystemExit(f"batched eval: launches {batched_launches}")
+        _phase("eval", t0, f"{len(eval_runs)} runs within the JAX CPU "
+               f"reference's bars (DTW ci95, F1 {EVAL_F1_TOL}, coverage "
+               f"{EVAL_COVERAGE_TOL}), {eval_launches['K1']} K1 launches; "
+               f"batched, {len(batched_runs)} runs within the JAX batched CPU "
+               f"reference's bars, {batched_launches['K1']} K1 launches")
 
     # 16. --quant int8 --------------------------------------------------------
-    t0 = time.monotonic()
-    q_bin = {"quant": "int8"}
-    q_se = {"max_length": MAX_LENGTH, "quant": "int8"}
-    q_binarizer, q_estimator = cli.initialize_sessions(
-        MODELS, device=dev, se_overrides=q_se, bin_overrides=q_bin)
-    _, q_beam = cli.initialize_sessions(
-        MODELS, device=dev, bin_overrides=q_bin,
-        se_overrides=q_se | {"decode": "beam", "beam_size": BEAM})
-    slice_imgs = imgs[:SLICE_INPUTS]
-    int8_rec = int8_phase(cli, read_png, slice_imgs, main_out, counters, dev,
-                          binarizer, estimator, {
-                              "bin": q_binarizer, "greedy": q_estimator,
-                              "beam": q_beam})
-    record["int8"] = int8_rec
-    slowest = max(int8_rec["convs"], key=lambda c: c["ms"] / c["cudnn_ms"])
-    _phase("int8", t0, f"{len(int8_rec['convs'])} int8 convs card == CPU "
-           f"bit for bit (slowest against cuDNN: {slowest['case']} "
-           f"{slowest['dtype']} {slowest['ms']:.3f} vs "
-           f"{slowest['cudnn_ms']:.3f} ms); demo bars {int8_rec['demo']}; "
-           f"per image binarize {int8_rec['cli']['binarize_s_per_image']:.4f}"
-           f" s (bf16 {main_rec['binarize_s_per_image']:.4f}), strokes "
-           f"{int8_rec['cli']['strokes_s_per_image']:.4f} s (bf16 "
-           f"{main_rec['strokes_s_per_image']:.4f}); masks against bf16 "
-           f"{int8_rec['cli']['against_bf16']['agree']:.6f}; eval within "
-           f"the JAX int8 CPU reference's bars")
+    if "int8" in todo:
+        t0 = time.monotonic()
+        int8_rec = int8_phase(cli, read_png, slice_imgs, main_out, counters,
+                              dev,
+                              binarizer, estimator, {
+                                  "bin": q_binarizer, "greedy": q_estimator,
+                                  "beam": q_beam})
+        record["int8"] = int8_rec
+        slowest = max(int8_rec["convs"], key=lambda c: c["ms"] / c["cudnn_ms"])
+        _phase("int8", t0, f"{len(int8_rec['convs'])} int8 convs card == CPU "
+               f"bit for bit (slowest against cuDNN: {slowest['case']} "
+               f"{slowest['dtype']} {slowest['ms']:.3f} vs "
+               f"{slowest['cudnn_ms']:.3f} ms); demo bars {int8_rec['demo']}; "
+               f"per image binarize "
+               f"{int8_rec['cli']['binarize_s_per_image']:.4f}"
+               f" s (bf16 {main_rec['binarize_s_per_image']:.4f}), strokes "
+               f"{int8_rec['cli']['strokes_s_per_image']:.4f} s (bf16 "
+               f"{main_rec['strokes_s_per_image']:.4f}); masks against bf16 "
+               f"{int8_rec['cli']['against_bf16']['agree']:.6f}; eval within "
+               f"the JAX int8 CPU reference's bars")
 
     # 17. --two-stage ---------------------------------------------------------
-    t0 = time.monotonic()
-    two_rec = two_stage_phase(cli, read_png, slice_imgs, main_out, counters, {
-        "none": (binarizer, estimator),
-        "int8": (q_binarizer, q_estimator)}, batch_rec)
-    record["two_stage"] = two_rec
-    per = {q: two_rec[q]["s_per_image"] for q in ("none", "int8")}
-    _phase("two_stage", t0, f"--two-stage {two_rec['chunk']}: " + "; ".join(
-        f"{q}: {two_rec['chunks']} K1 launches, outputs as the sequential "
-        f"chunks', {per[q]['two_stage']:.4f} s/image (chunks "
-        f"{per[q]['sequential_chunks']:.4f}, --batch {per[q]['batch']:.4f}),"
-        f" overlap {two_rec[q]['overlap']:.3f}" for q in per)
-        + "; per-image mode as the per-image run")
+    if "two_stage" in todo:
+        t0 = time.monotonic()
+        two_rec = two_stage_phase(cli, read_png, slice_imgs, main_out,
+                                  counters, {
+            "none": (binarizer, estimator),
+            "int8": (q_binarizer, q_estimator)}, batch_rec)
+        record["two_stage"] = two_rec
+        per = {q: two_rec[q]["s_per_image"] for q in ("none", "int8")}
+        _phase("two_stage", t0, f"--two-stage {two_rec['chunk']}: "
+               + "; ".join(
+            f"{q}: {two_rec['chunks']} K1 launches, outputs as the sequential "
+            f"chunks', {per[q]['two_stage']:.4f} s/image (chunks "
+            f"{per[q]['sequential_chunks']:.4f}, --batch "
+            f"{per[q]['batch']:.4f}),"
+            f" overlap {two_rec[q]['overlap']:.3f}" for q in per)
+            + "; per-image mode as the per-image run")
 
     # 18. profile -----------------------------------------------------------
-    t0 = time.monotonic()
-    prof_imgs = imgs[:PROFILE_INPUTS] if PROFILE_INPUTS else imgs
-    prof_rec = profile_phase(prof_imgs, binarizer, estimator, counters, dev,
-                             smi, main_out)
-    record["profile"] = prof_rec
-    up = {gid: prof_rec["ledger_per_image"][f"per_image_{gid}"]["strokes"][
-        "up_bytes"] for gid in ("packed", "dense")}
-    shares = ", ".join(
-        f"{k} {v['busy_share']:.3f}" if v["busy_share"] is not None
-        else f"{k} no device track" for k, v in prof_rec["busy"].items())
-    natives = ", ".join(f"{op} {d['native']:.3f} ms/image" for op, d in
-                        prof_rec["native_ms_per_image"].items())
-    _phase("profile", t0, f"{len(prof_imgs)} images: native resize and CC "
-           f"as numpy's and scipy's ({natives}); strokes up bytes/image "
-           f"packed {up['packed']:.0f} < dense {up['dense']:.0f}; busy "
-           f"share {shares}; K1 agreement with its plain version "
-           f"{prof_rec['k1']['agree']:.4f}; {smi}")
+    if "profile" in todo:
+        t0 = time.monotonic()
+        prof_imgs = imgs[:PROFILE_INPUTS] if PROFILE_INPUTS else imgs
+        prof_rec = profile_phase(prof_imgs, binarizer, estimator, counters,
+                                 dev,
+                                 smi, main_out)
+        record["profile"] = prof_rec
+        up = {gid: prof_rec["ledger_per_image"][f"per_image_{gid}"]["strokes"][
+            "up_bytes"] for gid in ("packed", "dense")}
+        shares = ", ".join(
+            f"{k} {v['busy_share']:.3f}" if v["busy_share"] is not None
+            else f"{k} no device track" for k, v in prof_rec["busy"].items())
+        natives = ", ".join(f"{op} {d['native']:.3f} ms/image" for op, d in
+                            prof_rec["native_ms_per_image"].items())
+        _phase("profile", t0, f"{len(prof_imgs)} images: native resize and CC "
+               f"as numpy's and scipy's ({natives}); strokes up bytes/image "
+               f"packed {up['packed']:.0f} < dense {up['dense']:.0f}; busy "
+               f"share {shares}; K1 agreement with its plain version "
+               f"{prof_rec['k1']['agree']:.4f}; {smi}")
 
     # 19. the mesh ------------------------------------------------------------
-    t0 = time.monotonic()
-    mesh_rec = mesh_phase(cli, inputs, imgs, batch_out, q_binarizer,
-                          binarizer, estimator, dev)
-    record["mesh"] = mesh_rec
-    print(json.dumps({"mesh": {k: v for k, v in mesh_rec.items()
-                               if k != "launches"}}), flush=True)
-    print(json.dumps({"mesh_img_per_s": mesh_rec["img_per_s"],
-                      "stage_s": mesh_rec["stage_s"], "card": smi}),
-          flush=True)
-    mesh_k = {run: sum(r[k] for r in mesh_rec["launches"][run])
-              for run, k in (("greedy", "K1"), ("greedy_f32", "K1"),
-                             ("int8", "K1"), ("two_stage", "K1"),
-                             ("beam", "K2"))}
-    _phase("mesh", t0, f"{len(mesh_rec['devices'])} ranks on "
-           f"{', '.join(mesh_rec['devices'])} over {mesh_rec['backend']}"
-           + (", and on cuda:0, cuda:1 over nccl" if "nccl" in mesh_rec
-              else "") + f": K1 once per rank per batch, float32 tokens as "
-           f"one rank's, masks against --batch "
-           f"{mesh_rec['greedy']['masks']['agree']:.6f} (tp=2 "
-           f"{mesh_rec['tp']['masks']['agree']:.6f}, int8 "
-           f"{mesh_rec['int8']['masks']['agree']:.6f}), two-stage as the "
-           f"chunks; trainer losses as one rank's (dp=2 and tp=2), "
-           f"parameters within "
-           f"{mesh_rec['train']['train_param_max_abs_diff']:.2e} and "
-           f"{mesh_rec['train']['train_tp_param_max_abs_diff']:.2e}; CLI "
-           f"--mesh 2 "
-           + ("warned and ran on one device" if mesh_rec["cli"]["warned"]
-              else "ran over the cards")
-           + f"; {mesh_rec['img_per_s']['dp2']:.2f} img/s at dp=2 against "
-           f"{mesh_rec['img_per_s']['dp1']:.2f} at dp=1 "
-           f"({mesh_rec['img_per_s']['note']}), {smi}")
-    launches_by_path = {
-        "K1": {"main": launches, "batch": batch_rec["launches"]["K1"],
-               "serve": k1_served, "real": k1_real, "batch-real": k1_breal,
-               "refine": real_rec["refine"]["launches"]["K1"],
-               "train": k1_train, "eval": eval_launches["K1"],
-               "int8": int8_rec["cli"]["launches"]["K1"],
-               "int8-batch": int8_rec["batch"]["launches"]["K1"],
-               "int8-eval": int8_rec["eval"]["launches"]["K1"],
-               "two-stage": two_rec["none"]["launches"]["K1"],
-               "two-stage-int8": two_rec["int8"]["launches"]["K1"],
-               "two-stage-per-image": two_rec["per_image"]["launches"]["K1"],
-               "profile": sum(v["K1"] for k, v in
-                              prof_rec["launches"].items()
-                              if k.startswith("per_image")),
-               "profile-batch": sum(v["K1"] for k, v in
-                                    prof_rec["launches"].items()
-                                    if k.startswith("batch")),
-               "mesh": mesh_k["greedy"], "mesh-f32": mesh_k["greedy_f32"],
-               "mesh-int8": mesh_k["int8"],
-               "mesh-two-stage": mesh_k["two_stage"]}
-        | onnx_rec["launches"]["K1"],
-        "K2": {"main-beam": beam_launches,
-               "batch-beam": bbeam_rec["launches"]["K2"],
-               "real-beam": k2_rbeam,
-               "int8-beam": int8_rec["beam"]["launches"]["K2"],
-               "mesh-beam": mesh_k["beam"]}
-        | onnx_rec["launches"]["K2"],
-        "K3": {"greedy_decode(fused=True)": None}}
+    if "mesh" in todo:
+        t0 = time.monotonic()
+        mesh_rec = mesh_phase(cli, inputs, imgs, batch_out, q_binarizer,
+                              binarizer, estimator, dev)
+        record["mesh"] = mesh_rec
+        print(json.dumps({"mesh": {k: v for k, v in mesh_rec.items()
+                                   if k != "launches"}}), flush=True)
+        print(json.dumps({"mesh_img_per_s": mesh_rec["img_per_s"],
+                          "stage_s": mesh_rec["stage_s"], "card": smi}),
+              flush=True)
+        mesh_k = {run: sum(r[k] for r in mesh_rec["launches"][run])
+                  for run, k in (("greedy", "K1"), ("greedy_f32", "K1"),
+                                 ("int8", "K1"), ("two_stage", "K1"),
+                                 ("beam", "K2"))}
+        _phase("mesh", t0, f"{len(mesh_rec['devices'])} ranks on "
+               f"{', '.join(mesh_rec['devices'])} over {mesh_rec['backend']}"
+               + (", and on cuda:0, cuda:1 over nccl" if "nccl" in mesh_rec
+                  else "") + f": K1 once per rank per batch, float32 "
+               f"tokens as "
+               f"one rank's, masks against --batch "
+               f"{mesh_rec['greedy']['masks']['agree']:.6f} (tp=2 "
+               f"{mesh_rec['tp']['masks']['agree']:.6f}, int8 "
+               f"{mesh_rec['int8']['masks']['agree']:.6f}), two-stage as the "
+               f"chunks; trainer losses as one rank's (dp=2 and tp=2), "
+               f"parameters within "
+               f"{mesh_rec['train']['train_param_max_abs_diff']:.2e} and "
+               f"{mesh_rec['train']['train_tp_param_max_abs_diff']:.2e}; CLI "
+               f"--mesh 2 "
+               + ("warned and ran on one device" if mesh_rec["cli"]["warned"]
+                  else "ran over the cards")
+               + f"; {mesh_rec['img_per_s']['dp2']:.2f} img/s at dp=2 against "
+               f"{mesh_rec['img_per_s']['dp1']:.2f} at dp=1 "
+               f"({mesh_rec['img_per_s']['note']}), {smi}")
 
     # kernel table and result ---------------------------------------------
+    # Each kernel's launches on each path that ran.
+    by_k1, by_k2, by_k3 = {}, {}, {}
+    if "main" in todo:
+        by_k1["main"] = launches
+    if "batch" in todo:
+        by_k1["batch"] = batch_rec["launches"]["K1"]
+    if "serve" in todo:
+        by_k1["serve"] = k1_served
+    if "real" in todo:
+        by_k1 |= {"real": k1_real, "batch-real": k1_breal,
+                  "refine": real_rec["refine"]["launches"]["K1"]}
+        by_k2["real-beam"] = k2_rbeam
+    if "train" in todo:
+        by_k1["train"] = k1_train
+    if "eval" in todo:
+        by_k1 |= {"eval": eval_launches["K1"],
+                  "eval-batched": batched_launches["K1"]}
+    if "int8" in todo:
+        by_k1 |= {"int8": int8_rec["cli"]["launches"]["K1"],
+                  "int8-batch": int8_rec["batch"]["launches"]["K1"],
+                  "int8-eval": int8_rec["eval"]["launches"]["K1"]}
+        by_k2["int8-beam"] = int8_rec["beam"]["launches"]["K2"]
+    if "two_stage" in todo:
+        by_k1 |= {"two-stage": two_rec["none"]["launches"]["K1"],
+                  "two-stage-int8": two_rec["int8"]["launches"]["K1"],
+                  "two-stage-per-image": two_rec["per_image"]["launches"][
+                      "K1"]}
+    if "profile" in todo:
+        by_k1 |= {"profile": sum(v["K1"] for k, v in
+                                 prof_rec["launches"].items()
+                                 if k.startswith("per_image")),
+                  "profile-batch": sum(v["K1"] for k, v in
+                                       prof_rec["launches"].items()
+                                       if k.startswith("batch"))}
+    if "mesh" in todo:
+        by_k1 |= {"mesh": mesh_k["greedy"], "mesh-f32": mesh_k["greedy_f32"],
+                  "mesh-int8": mesh_k["int8"],
+                  "mesh-two-stage": mesh_k["two_stage"]}
+        by_k2["mesh-beam"] = mesh_k["beam"]
+    if "onnx" in todo:
+        by_k1 |= onnx_rec["launches"]["K1"]
+        by_k2 |= onnx_rec["launches"]["K2"]
+    if "main-beam" in todo:
+        by_k2["main-beam"] = beam_launches
+    if "batch-beam" in todo:
+        by_k2["batch-beam"] = bbeam_rec["launches"]["K2"]
+    launches_by_path = {"K1": by_k1, "K2": by_k2, "K3": by_k3}
+
     def row(name, src, replaces, launches_, rec, err):
         return {"name": name, "route": "cuda",
                 "source": f"stroke_derenderer_tpu_torch/csrc/{src}",
@@ -3173,57 +3532,69 @@ def main(argv=None) -> int:
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": None}
 
-    for name, rec in (("K1", pick(checks, "golden", "bfloat16")),
-                      ("K2", pick(k2_checks, "golden", "bfloat16"))):
-        lib = "fused_decode" if name == "K1" else "fused_beam"
+    for name, lib, phase in (("K1", "fused_decode", "k1"),
+                             ("K2", "fused_beam", "k2")):
+        if phase not in todo:
+            continue
+        rec = pick(checks if name == "K1" else k2_checks, "golden",
+                   "bfloat16")
         print(json.dumps({"launch": name, "grid": rec["grid"],
                           "threads": 512,
                           "barriers_per_step": rec["barriers_per_step"],
                           "step_ms": rec["step_ms"],
+                          "engine_bf16": rec["engine"],
+                          "mma_plan": rec["mma_plan"],
+                          "hmma": record["sass_mma"][lib],
                           "ptxas": record["build"][lib]["kernels"]}))
-    golden_k3 = pick(k3_checks, "golden")
-    print(json.dumps({"launch": "K3", "clusters": golden_k3["G"],
-                      "cluster": golden_k3["C"],
-                      "grid": golden_k3["G"] * golden_k3["C"],
-                      "threads": 256, "cluster_barriers_per_row_tile": 2,
-                      "row_tile": golden_k3["row_tile"],
-                      "smem_bytes": golden_k3["smem_bytes"],
-                      "bytes_per_cta": golden_k3["bytes_per_cta"],
-                      "ptxas": record["build"]["decode_attention"][
-                          "kernels"]}))
-    fused_entry = pick(k3_checks, "golden, greedy_decode(fused=True)",
-                       "bfloat16")
-    launches_by_path["K3"]["greedy_decode(fused=True)"] = fused_entry[
-        "k3_launches"]
+    if "k3" in todo:
+        golden_k3 = pick(k3_checks, "golden")
+        print(json.dumps({"launch": "K3", "clusters": golden_k3["G"],
+                          "cluster": golden_k3["C"],
+                          "grid": golden_k3["G"] * golden_k3["C"],
+                          "threads": 256, "cluster_barriers_per_row_tile": 2,
+                          "row_tile": golden_k3["row_tile"],
+                          "smem_bytes": golden_k3["smem_bytes"],
+                          "bytes_per_cta": golden_k3["bytes_per_cta"],
+                          "ptxas": record["build"]["decode_attention"][
+                              "kernels"]}))
+        fused_entry = pick(k3_checks, "golden, greedy_decode(fused=True)",
+                           "bfloat16")
+        by_k3["greedy_decode(fused=True)"] = fused_entry["k3_launches"]
     print(json.dumps({"launches_by_path": launches_by_path}))
+    print(json.dumps({"launches_by_engine": {
+        "K1": fd.engine_launches, "K2": fb.engine_launches}}))
     # Tokens are integers: for K1 and K2 max_abs_err is the largest share of
     # float32 token positions that differ from the plain version.
-    kernels = [
-        row("K1 fused greedy decode", "fused_decode.cu",
-            "stroke_derenderer_tpu/kernels/fused_decode.py:251",
-            sum(launches_by_path["K1"].values()),
-            pick(checks, "golden", "bfloat16"),
-            max(1.0 - c["agree"] for c in checks + batch_k1
-                + [c for c in onnx_rec["checks"] if c["kernel"] == "K1"]
-                if c["dtype"] == "float32")),
-        row("K2 fused beam decode", "fused_beam.cu",
-            "stroke_derenderer_tpu/kernels/fused_beam.py:218",
-            sum(launches_by_path["K2"].values()),
-            pick(k2_checks, "golden", "bfloat16"),
-            max(1.0 - c["agree"] for c in k2_checks + batch_k2
-                + [c for c in onnx_rec["checks"] if c["kernel"] == "K2"]
-                if c.get("dtype") == "float32")),
-        row("K3 fused attention + gate", "decode_attention.cu",
-            "stroke_derenderer_tpu/kernels/decode_attention.py:109",
-            fused_entry["k3_launches"], pick(k3_checks, "golden"),
-            max(c["max_abs_err"] for c in k3_checks
-                if "max_abs_err" in c)),
-    ]
+    kernels = []
+    if todo >= {"k1", "k2", "k3"}:
+        onnx_checks = onnx_rec["checks"] if "onnx" in todo else []
+        kernels = [
+            row("K1 fused greedy decode", "fused_decode.cu",
+                "stroke_derenderer_tpu/kernels/fused_decode.py:251",
+                sum(by_k1.values()), pick(checks, "golden", "bfloat16"),
+                max(1.0 - c["agree"] for c in checks
+                    + (batch_k1 if "batch" in todo else [])
+                    + [c for c in onnx_checks if c["kernel"] == "K1"]
+                    if c["dtype"] == "float32")),
+            row("K2 fused beam decode", "fused_beam.cu",
+                "stroke_derenderer_tpu/kernels/fused_beam.py:218",
+                sum(by_k2.values()), pick(k2_checks, "golden", "bfloat16"),
+                max(1.0 - c["agree"] for c in k2_checks
+                    + (batch_k2 if "batch-beam" in todo else [])
+                    + [c for c in onnx_checks if c["kernel"] == "K2"]
+                    if c.get("dtype") == "float32")),
+            row("K3 fused attention + gate", "decode_attention.cu",
+                "stroke_derenderer_tpu/kernels/decode_attention.py:109",
+                fused_entry["k3_launches"], pick(k3_checks, "golden"),
+                max(c["max_abs_err"] for c in k3_checks
+                    if "max_abs_err" in c)),
+        ]
     if args.out:
         record["kernels"] = kernels
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))
-    print(json.dumps({"kernels": kernels}))
+    if kernels:
+        print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

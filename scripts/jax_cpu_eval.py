@@ -3,7 +3,8 @@
 evaluator is held to on the card (``chip_smoke.py`` phase ``eval``), and
 the port's own on the same CPU.
 
-    python scripts/jax_cpu_eval.py [--quant int8] [--keep-jax] [--out FILE]
+    python scripts/jax_cpu_eval.py [--quant int8 | --batched] [--keep-jax]
+        [--out FILE]
 
 Runs the JAX evaluator (``python -m stroke_derenderer_tpu.eval.run``) with
 ``JAX_PLATFORMS=cpu`` on ``models_demo`` (bfloat16, its shipped config)
@@ -35,6 +36,12 @@ normalization statistics summed in another float32 order) into
 ``variants``: int8 turns such a rounding into whole int8 steps, so these
 runs are as valid a reference as the first ones. The four JAX processes
 run side by side (~14 min).
+
+``--batched`` runs the same three sets through the cross-image batched
+path instead (``scripts/eval_batched.py``: one ``binarize_images`` and one
+``process_images`` call per set, scored with the evaluator's metrics), the
+JAX package alone, into ``tests/golden/jax_cpu_eval_batched.json`` (~4
+min).
 """
 
 from __future__ import annotations
@@ -70,9 +77,14 @@ def runs(quant: str) -> dict:
 VARIANTS = {"groupnorm_blocked_sum": "scripts/jax_eval_blocked_stats.py"}
 
 
-def command(package: str, args: list[str]) -> list[str]:
-    cmd = [sys.executable, "-m", f"{package}.eval.run", "--models",
-           "models_demo"] + args
+def command(package: str, args: list[str], batched: bool = False
+            ) -> list[str]:
+    if batched:
+        cmd = [sys.executable, "scripts/eval_batched.py", "--package",
+               package, "--models", "models_demo"] + args
+    else:
+        cmd = [sys.executable, "-m", f"{package}.eval.run", "--models",
+               "models_demo"] + args
     return cmd + (["--device", "cpu"] if package.endswith("_torch") else [])
 
 
@@ -100,14 +112,22 @@ def main(argv=None) -> int:
     ap.add_argument("--quant", choices=["none", "int8"], default="none",
                     help="int8: the greedy runs with the int8 conv stacks, "
                          "into tests/golden/jax_cpu_eval_int8.json")
+    ap.add_argument("--batched", action="store_true",
+                    help="the sets through binarize_images and "
+                         "process_images, into "
+                         "tests/golden/jax_cpu_eval_batched.json")
     ap.add_argument("--out", default=None,
                     help="default tests/golden/jax_cpu_eval.json, or "
-                         "jax_cpu_eval_int8.json with --quant int8")
+                         "jax_cpu_eval_int8.json with --quant int8, or "
+                         "jax_cpu_eval_batched.json with --batched")
     ap.add_argument("--keep-jax", action="store_true",
                     help="keep the JAX runs of --out, run only the port's")
     args = ap.parse_args(argv)
+    if args.batched and (args.quant != "none" or args.keep_jax):
+        ap.error("--batched runs the JAX package alone, without --quant")
     out = Path(args.out or ROOT / "tests" / "golden" / (
-        "jax_cpu_eval.json" if args.quant == "none"
+        "jax_cpu_eval_batched.json" if args.batched
+        else "jax_cpu_eval.json" if args.quant == "none"
         else f"jax_cpu_eval_{args.quant}.json"))
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                SD_TPU_COMPILE_CACHE=str(ROOT / ".jax_eval_cache"))
@@ -115,8 +135,11 @@ def main(argv=None) -> int:
     if args.keep_jax:
         record = json.loads(out.read_text())
     else:
-        record = jax_runs(env, todo, args.quant)
+        record = jax_runs(env, todo, args.quant, args.batched)
         out.write_text(json.dumps(record, indent=1) + "\n")
+    if args.batched:
+        print(json.dumps(record))
+        return 0
     import torch
     record["port_cpu"] = {"torch_version": torch.__version__, "runs": {}}
     for k, a in todo.items():
@@ -130,10 +153,11 @@ def main(argv=None) -> int:
     return 0
 
 
-def jax_runs(env: dict, todo: dict, quant: str) -> dict:
+def jax_runs(env: dict, todo: dict, quant: str, batched: bool = False
+             ) -> dict:
     """The JAX runs of ``todo`` in parallel processes -> the file's
     record."""
-    jax_cmds = {(None, k): command("stroke_derenderer_tpu", a)
+    jax_cmds = {(None, k): command("stroke_derenderer_tpu", a, batched)
                 for k, a in todo.items()}
     if quant != "none":
         jax_cmds |= {(v, k): variant_command(script, a)
@@ -157,9 +181,11 @@ def jax_runs(env: dict, todo: dict, quant: str) -> dict:
          "models_demo", "examples/real_data"], cwd=ROOT, capture_output=True,
         text=True).stdout.strip())
     return {
-        "what": "JAX package evaluator, JAX_PLATFORMS=cpu, models_demo "
-                "(bfloat16" + (", int8 conv stacks)" if quant != "none"
-                               else ")"),
+        "what": ("JAX package, scripts/eval_batched.py (binarize_images "
+                 "and process_images once per set)" if batched
+                 else "JAX package evaluator")
+                + ", JAX_PLATFORMS=cpu, models_demo (bfloat16"
+                + (", int8 conv stacks)" if quant != "none" else ")"),
         "commit": commit, "jax_package_modified": dirty,
         "jax_version": jax.__version__,
         "python": sys.version.split()[0],

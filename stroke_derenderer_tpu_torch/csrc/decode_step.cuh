@@ -3,18 +3,15 @@
 // per decode call, whose blocks split every step's work over the whole card
 // and meet at grid-wide barriers.
 //
-// What bounds a step on an H100: it streams about 8.7 MB of weights (7.3 MB
-// in bfloat16 plus the 0.9 MB float32 head) and 0.4 MB of encoder data per
-// row, for about 8.3 MFLOP per row: far too few operations per byte for the
-// tensor cores, and far too little work per step to hide the latency of one
-// SM streaming all of it. So no SM streams all of it: each block owns a
-// slice of the output columns of every matrix (about 66 KB of weights at 132
-// blocks, which stay resident in the 50 MB L2 cache across steps) and the
-// step is cut into four phases separated by `grid.sync()`:
+// A step streams about 8.7 MB of weights (7.3 MB in bfloat16 plus the 0.9
+// MB float32 head) and 0.4 MB of encoder data per row, for about 8.3 MFLOP
+// per row. No SM streams all of it: each block owns a slice of the output
+// columns of every matrix and the step is cut into four phases separated by
+// `grid.sync()`:
 //
 //   A  from h: the owned columns of the head ([W_att | W_f] (H x (A+E)) and
-//      the float32 W_fc (H x V)): dp = h W_att + b, gate = sigmoid(h W_f +
-//      b_f) for the next step, and the logits of the step just finished;
+//      W_fc (H x V)): dp = h W_att + b, gate = sigmoid(h W_f + b_f) for the
+//      next step, and the logits of the step just finished;
 //   B  (K1: every block takes the argmax of every row redundantly, in the
 //      same order, so that all blocks agree on which rows retire and leave
 //      the loop together; K2: a separate phase and barrier picks the beams)
@@ -31,31 +28,77 @@
 // is computed on the host (kernels/fused_decode.py:step_plan) and passed in
 // as two int32 arrays. Weights are packed once per model
 // (pack_step_weights): each output column's K values contiguous and padded
-// to a multiple of 8, so that a warp reads a column with 16-byte loads, each
-// lane taking every 32nd chunk of the reduction, and combines its lanes with
-// a fixed xor butterfly (every lane ends with the same sum).
+// to a multiple of 8.
+//
+// Two paths run phases A and D, chosen by the stream type at compile time:
+//
+// * float32 streams: the CUDA-core path. Per row a float64 sum of float32
+//   products: a warp streams a weight column from L2 with 16-byte loads,
+//   each lane taking every 32nd chunk of the reduction and the lanes joined
+//   by a fixed xor butterfly, for a tile of at most TILE = 8 rows staged in
+//   shared memory as float32. One weight read serves 8 rows. Per row this
+//   is a matrix-vector product with far too few operations per byte for
+//   the tensor cores, and its float64 sums make the tokens those of the
+//   plain version (kernels/fused_decode.py:fused_greedy_decode_plain).
+//
+// * bfloat16 streams: the tensor-core path. At the rows the batched paths
+//   decode (197 glyphs, 985 beams) every weight byte serves ~190 FLOP, and
+//   the CUDA-core path re-read each block's slice from L2 once per 8 rows.
+//   Here each block copies its slices into shared memory once, in the
+//   prologue (cp.async), and keeps them for the whole launch: the rows 4j..
+//   4j+3 of [W_x | W_h] for its units (`m3map`), and the head columns it
+//   owns (`hmap`), W_fc split at pack time into three bfloat16 parts whose
+//   sum is the float32 weight exactly. Both maps come from the host
+//   (kernels/fused_decode.py:mma_slices). A phase then runs `mma.sync
+//   m16n8k16` (bf16 in, float32 sums) with 16 weight rows as M and the rows
+//   as N in steps of 8: every resident weight fragment serves every live
+//   row. The rows' inputs ([emb(tok) | awe | 0 | h | 0] for D, h for A) are
+//   bfloat16 already, so they are staged as bfloat16 with no rounding, in
+//   K-chunks of KC columns for NT rows at a time, double-buffered with
+//   cp.async: the slices and a whole staged row tile do not fit in shared
+//   memory together at an encoder width of 2048 (LDX 3072). mma.sync and
+//   not wgmma: a block owns 12-16 gate columns and 11-23 head columns, far
+//   below wgmma's 64-row tile, and a 16-row m-tile wastes at most a quarter
+//   of it. With fewer (m-tile, 8-row) pairs than warps, the warps split the
+//   k-steps of a pair and their partial sums are added in warp order.
+//   What bounds it: each block reads every live row's inputs from L2 once
+//   a step (~80 MB a step at 197 rows over 132 blocks), not the weights.
 //
 // State that lives across barriers (h and c, double-buffered; dp, gate,
 // scores, the attended vector, the logits; K2's beam state) is global
 // scratch that the wrapper allocates, as is each block's own list of active
-// rows. The shared state is written inside the kernel, so it is never read through __ldg or a const __restrict__
+// rows; the tensor-core path keeps h and the attended vector in bfloat16
+// (h16, awe16), the values it stages. The shared state is written inside
+// the kernel, so it is never read through __ldg or a const __restrict__
 // pointer: a non-coherent load could return a stale value after grid.sync().
-// Only the weights and the encoder inputs are read through __ldg.
+// Only the weights and the encoder inputs are read through __ldg (and the
+// weights and staged rows through cp.async, which reads L2).
 //
 // Every block reaches every grid.sync(): loops whose bounds differ between
 // blocks never contain one, and the decision to stop is taken by every block
-// from identical data.
+// from identical data. There is no limit on the number of rows.
 //
-// Rows are processed in tiles of at most TILE = 8: for each tile the block
-// stages the tile's inputs in shared memory (as float32, which holds values
-// of the stream type exactly) and each warp keeps one float64 sum per row
-// while it streams a weight column, so one weight read serves the tile.
-// There is no limit on the number of rows.
+// Rounding (the contract of models/decoder.py), kept at flax's points:
 //
-// Rounding (the contract of models/decoder.py): products, the attention
-// softmax and the attended sum in float64, rounded once at flax's points;
-// elementwise float32 arithmetic through the _rn intrinsics so that the
-// compiler cannot contract it into an FMA.
+// * float32 streams: products, the attention softmax and the attended sum
+//   in float64, rounded once at flax's points; elementwise float32
+//   arithmetic through the _rn intrinsics so that the compiler cannot
+//   contract it into an FMA. The tokens are the plain version's.
+// * bfloat16 streams: phases B and C and every elementwise step as above.
+//   Phases A and D: each k-step's 16 products (exact in float32) are summed
+//   by the tensor core from zero, and the k-steps' sums are added in
+//   float64 (x W_x and h W_h apart); a second MMA on |W| and |x| bounds how
+//   far that is from the float64 sum (BOUND, below). A sum is rounded once
+//   at flax's point where every value within the bound rounds alike; else
+//   the element is recomputed in float64 on CUDA cores. So every value
+//   rounded to bfloat16 is the float64 sum's, as on the float32 path (it
+//   could go wrong only if the tensor core's error exceeded the bound;
+//   `fixstat` records the largest error seen among the recomputed
+//   elements, as a share of the bound). W_fc goes in as hi, mid and lo,
+//   three MMAs into one accumulator a k-step; the logits are that sum,
+//   within the bound of the float64 one, rounded to float32, plus b_fc:
+//   a logit can be an ulp off the plain version's, which changes a token
+//   only at a near-tie (a greedy argmax, or the ranking of beams).
 
 #pragma once
 
@@ -64,6 +107,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace sd {
 
@@ -77,6 +123,13 @@ constexpr int PAD_TOK = 0;
 constexpr int BOS_TOK = 1;
 constexpr int EOS_TOK = 2;
 constexpr float NEG_INF = -1e30f;
+// The tensor-core path (bfloat16 streams).
+constexpr int MAXJ = 1;     // (m-tile, 8-row) jobs a warp holds at once
+constexpr int SPAD = 8;     // bf16 padding after every shared row (banks)
+constexpr int MAX_LT = 16;  // head m-tiles a block may own (hkind's width)
+
+template <typename T>
+constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
 
 // Order of the pointer array the C entry points take; the wrapper
 // (kernels/fused_decode.py:STEP_POINTERS) passes them in this order.
@@ -90,10 +143,18 @@ enum Ptr {
   P_BP_PARENT, P_BP_WRITE,
   P_PREDS, P_SCORE_OUT, P_LENS_OUT,             // outputs
   P_STAMPS,                                     // optional phase clock
+  P_MH, P_M3MAP, P_HMAP, P_HKIND, P_H16, P_AWE16,  // tensor-core path
+  P_FIX, P_FIXSTAT,
   N_PTR
 };
 // Order of the int array of dimensions.
-enum Dim { D_B, D_P, D_E, D_A, D_H, D_D, D_V, D_K, D_MAX_LENGTH, N_DIM };
+// NT, KC, R3, RH: the tensor-core path's shared-memory plan (0 for float32
+// streams), from kernels/fused_decode.py:mma_plan.
+enum Dim {
+  D_B, D_P, D_E, D_A, D_H, D_D, D_V, D_K, D_MAX_LENGTH,
+  D_NT, D_KC, D_R3, D_RH,
+  N_DIM
+};
 
 struct Dims {
   int B, P, E, A, H, D, V, K, max_length;
@@ -104,6 +165,15 @@ struct Dims {
   int Pp;   // P rounded up to 4
   int LDX;  // Xp + Hp: a staged LSTM input row, and a packed W_x|W_h column
   int NH;   // A + E + V head columns
+  // The tensor-core path: K-steps of 16, so the x and h parts are padded
+  // to 16 in shared memory.
+  int Xq;   // X rounded up to 16
+  int Hq;   // H rounded up to 16
+  int LDQ;  // Xq + Hq
+  int NT;   // rows staged at a time
+  int KC;   // columns staged at a time (a multiple of 16)
+  int R3;   // resident rows of [W_x | W_h] per block (a multiple of 16)
+  int RH;   // resident head rows per block (a multiple of 16)
 };
 
 inline Dims make_dims(const int* v) {
@@ -117,6 +187,10 @@ inline Dims make_dims(const int* v) {
   d.Pp = (d.P + 3) & ~3;
   d.LDX = d.Xp + d.Hp;
   d.NH = d.A + d.E + d.V;
+  d.Xq = (d.X + 15) & ~15;
+  d.Hq = (d.H + 15) & ~15;
+  d.LDQ = d.Xq + d.Hq;
+  d.NT = v[D_NT]; d.KC = v[D_KC]; d.R3 = v[D_R3]; d.RH = v[D_RH];
   return d;
 }
 
@@ -164,6 +238,20 @@ struct Params {
   // grid barrier: [0] at the start, [1] after the set-up, [2] after the
   // prologue, then 2 + t * phases + i after phase i of step t.
   unsigned long long* stamps;
+  // The tensor-core path (null for float32 streams):
+  const __nv_bfloat16* mh;  // (A + E + 3V, Hp): m1's rows, then W_fc's hi,
+                            // mid and lo parts, column n at A + E + n
+  const int* m3map;   // (grid, R3): block b's resident row i is m3 row
+                      // m3map[b][i] (-1: zeros)
+  const int* hmap;    // (grid, RH): ... and its head row i is mh row
+                      // hmap[b][i] (-1: zeros)
+  const int* hkind;   // (grid, MAX_LT): its head m-tiles in order, 1 (16
+                      // rows of mh) or 3 (hi, mid, lo: 48 rows); 0 ends
+  __nv_bfloat16* h16;    // (2, R, Hp): h, double-buffered
+  __nv_bfloat16* awe16;  // (R, E): the attended vector
+  int* fix;      // (grid, FIXCAP, FIXWORDS): elements to recompute
+  int* fixstat;  // (grid, 2): elements recomputed, and the largest
+                 // |tensor-core sum - float64 sum| / bound seen (float)
   Dims d;
 };
 
@@ -207,16 +295,38 @@ Params<T> make_params(const void* const* p, const Dims& d) {
   q.score_out = (float*)p[P_SCORE_OUT];
   q.lens_out = (int*)p[P_LENS_OUT];
   q.stamps = (unsigned long long*)p[P_STAMPS];
+  q.mh = (const __nv_bfloat16*)p[P_MH];
+  q.m3map = (const int*)p[P_M3MAP];
+  q.hmap = (const int*)p[P_HMAP];
+  q.hkind = (const int*)p[P_HKIND];
+  q.h16 = (__nv_bfloat16*)p[P_H16];
+  q.awe16 = (__nv_bfloat16*)p[P_AWE16];
+  q.fix = (int*)p[P_FIX];
+  q.fixstat = (int*)p[P_FIXSTAT];
   q.d = d;
   return q;
 }
 
-// Shared memory: dynamic, doubles first.
+// Shared memory: dynamic, doubles first; the tensor-core path's regions
+// 16-byte aligned (cp.async and 16-byte loads).
 struct Smem {
   double* alpha;  // Pp: a row's attention weights
   double* part;   // WARPS x 32: phase C's per-warp partial sums
-  float* xs;      // TILE x LDX: a tile's staged inputs
-  float* pre;     // TILE x 4 UNIT_CHUNK: gate pre-activations
+  float* xs;      // CUDA cores: TILE x LDX, a tile's staged inputs
+  float* pre;     // CUDA cores: TILE x 4 UNIT_CHUNK, gate pre-activations;
+                  // tensor cores: NT x R3
+  __nv_bfloat16* w3;  // tensor cores: R3 x (LDQ + SPAD), resident W_x|W_h
+  __nv_bfloat16* wh;  // tensor cores: RH x (Hq + SPAD), resident head
+  __nv_bfloat16* xb;  // tensor cores: 2 x NT x (KC + SPAD), staged chunks
+                      // (and, after the last chunk, split-k partial sums)
+  int* hoff;          // tensor cores: MAX_LT, head m-tile t's first row
+  int* hkind;         // tensor cores: MAX_LT, its parts (0: no tile)
+  int* m3map;         // tensor cores: R3, the block's row of m3map
+  int* hmap;          // tensor cores: RH, the block's row of hmap
+  int* own;           // tensor cores: 4, the block's head_start[b],
+                      // head_start[b + 1], unit_start[b], unit_start[b + 1]
+  float* bias3;       // tensor cores: R3, the bias of each resident m3 row
+  float* biash;       // tensor cores: RH, the bias of each head column
   int* bpar;      // K2, 5 x K: top-K parents, tokens, values, fin, len
   int* bnew;
   float* bval;
@@ -224,19 +334,53 @@ struct Smem {
   int* blen;
 };
 
-inline size_t smem_bytes(const Dims& d) {
-  return sizeof(double) * ((size_t)d.Pp + WARPS * 32) +
-         sizeof(float) * ((size_t)TILE * d.LDX + TILE * 4 * UNIT_CHUNK) +
-         sizeof(int) * 5 * (size_t)d.K;
+// The tensor-core path's staging region: two buffers of NT rows x (KC +
+// SPAD) bf16 (a tile of fewer rows stages wider chunks in the same room);
+// after a tile's last chunk it holds the split-k partial sums.
+__host__ __device__ inline size_t mma_stage_bytes(const Dims& d) {
+  return 2 * 2 * (size_t)d.NT * (d.KC + SPAD);
 }
 
+template <typename T>
+inline size_t smem_bytes(const Dims& d) {
+  const size_t head = sizeof(double) * ((size_t)d.Pp + WARPS * 32);
+  const size_t beam = sizeof(int) * 5 * (size_t)d.K;
+  if (kMma<T>)
+    return head + 2 * (size_t)d.R3 * (d.LDQ + SPAD) +
+           2 * (size_t)d.RH * (d.Hq + SPAD) + mma_stage_bytes(d) +
+           sizeof(float) * (size_t)d.NT * d.R3 +
+           sizeof(int) * (2 * MAX_LT + (size_t)d.R3 + d.RH + 4) +
+           sizeof(float) * ((size_t)d.R3 + d.RH) + beam;
+  return head +
+         sizeof(float) * ((size_t)TILE * d.LDX + TILE * 4 * UNIT_CHUNK) +
+         beam;
+}
+
+template <typename T>
 __device__ inline Smem carve(void* base, const Dims& d) {
-  Smem s;
+  Smem s = {};
   s.alpha = (double*)base;
   s.part = s.alpha + d.Pp;
-  s.xs = (float*)(s.part + WARPS * 32);
-  s.pre = s.xs + TILE * d.LDX;
-  s.bpar = (int*)(s.pre + TILE * 4 * UNIT_CHUNK);
+  char* next = (char*)(s.part + WARPS * 32);
+  if constexpr (kMma<T>) {
+    s.w3 = (__nv_bfloat16*)next;
+    s.wh = s.w3 + (size_t)d.R3 * (d.LDQ + SPAD);
+    s.xb = s.wh + (size_t)d.RH * (d.Hq + SPAD);
+    s.pre = (float*)((char*)s.xb + mma_stage_bytes(d));
+    s.hoff = (int*)(s.pre + (size_t)d.NT * d.R3);
+    s.hkind = s.hoff + MAX_LT;
+    s.m3map = s.hkind + MAX_LT;
+    s.hmap = s.m3map + d.R3;
+    s.own = s.hmap + d.RH;
+    s.bias3 = (float*)(s.own + 4);
+    s.biash = s.bias3 + d.R3;
+    next = (char*)(s.biash + d.RH);
+  } else {
+    s.xs = (float*)next;
+    s.pre = s.xs + TILE * d.LDX;
+    next = (char*)(s.pre + TILE * 4 * UNIT_CHUNK);
+  }
+  s.bpar = (int*)next;
   s.bnew = s.bpar + d.K;
   s.bval = (float*)(s.bnew + d.K);
   s.bfin = (int*)(s.bval + d.K);
@@ -410,11 +554,20 @@ __device__ void head_tile(const Params<T>& p, const Smem& s, const int* act,
   }
 }
 
+template <typename T>
+__device__ void phase_head_mma(const Params<T>& p, const Smem& s,
+                               const int* act, int nact, int hb, bool logits);
+template <typename T>
+__device__ void phase_lstm_mma(const Params<T>& p, const Smem& s,
+                               const int* act, int nact, const int* tok,
+                               int hb);
+
 // From h (buffer hb) of the active rows: dp and gate, and with `logits` the
 // head's logits, for the columns this block owns.
 template <typename T>
-__device__ void phase_head(const Params<T>& p, const Smem& s, const int* act,
-                           int nact, int hb, bool logits) {
+__device__ void phase_head_f64(const Params<T>& p, const Smem& s,
+                               const int* act, int nact, int hb,
+                               bool logits) {
   const Dims& d = p.d;
   const int c0 = p.head_start[blockIdx.x];
   const int c1 = min(p.head_start[blockIdx.x + 1],
@@ -432,6 +585,15 @@ __device__ void phase_head(const Params<T>& p, const Smem& s, const int* act,
       head_tile<TILE>(p, s, act, ts, nr, c0, c1);
     __syncthreads();
   }
+}
+
+template <typename T>
+__device__ void phase_head(const Params<T>& p, const Smem& s, const int* act,
+                           int nact, int hb, bool logits) {
+  if constexpr (kMma<T>)
+    phase_head_mma(p, s, act, nact, hb, logits);
+  else
+    phase_head_f64(p, s, act, nact, hb, logits);
 }
 
 // ---- phase B: attention scores ------------------------------------------
@@ -528,7 +690,11 @@ __device__ void phase_attend(const Params<T>& p, const Smem& s,
       double tot = 0.0;
       for (int w = 0; w < WARPS; ++w) tot += s.part[w * 32 + lane];
       const float g = p.gate[(size_t)src_row(p, r) * d.E + e];
-      p.awe[(size_t)r * d.E + e] = rnd64<T>((double)g * tot);
+      if constexpr (kMma<T>)
+        p.awe16[(size_t)r * d.E + e] =
+            __float2bfloat16_rn(rnd64<T>((double)g * tot));
+      else
+        p.awe[(size_t)r * d.E + e] = rnd64<T>((double)g * tot);
     }
     __syncthreads();
   }
@@ -563,8 +729,9 @@ __device__ void lstm_cols(const Params<T>& p, const Smem& s, int nr, int uc,
 // block owns. `tok` gives each row's input token; K2 rows continue their
 // parent's state.
 template <typename T>
-__device__ void phase_lstm(const Params<T>& p, const Smem& s, const int* act,
-                           int nact, const int* tok, int hb) {
+__device__ void phase_lstm_f64(const Params<T>& p, const Smem& s,
+                               const int* act, int nact, const int* tok,
+                               int hb) {
   const Dims& d = p.d;
   const int j0 = p.unit_start[blockIdx.x], j1 = p.unit_start[blockIdx.x + 1];
   if (j0 >= j1) return;  // block-uniform
@@ -614,6 +781,700 @@ __device__ void phase_lstm(const Params<T>& p, const Smem& s, const int* act,
   }
 }
 
+
+template <typename T>
+__device__ void phase_lstm(const Params<T>& p, const Smem& s, const int* act,
+                           int nact, const int* tok, int hb) {
+  if constexpr (kMma<T>)
+    phase_lstm_mma(p, s, act, nact, tok, hb);
+  else
+    phase_lstm_f64(p, s, act, nact, tok, hb);
+}
+
+// ---- the tensor-core path (bfloat16 streams) --------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// Global -> shared copies of 16 bytes (bypassing L1) or 8 bytes, outside
+// the registers; a null source zero-fills (`any` is a valid address that
+// is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           const void* any) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src ? src : any), "r"(src ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          const void* any) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src ? src : any), "r"(src ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// c += a b for one m16n8k16 tile: a 16 x 16 bf16 (row-major), b 16 x 8
+// bf16 (column-major), c float32; products exact, sums in float32.
+__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Where a staged row comes from: element k of row r, or null for a zero.
+// Phase D: [emb(tok) | awe | 0 .. Xq | h(src) | 0 .. Hq].
+struct LstmRows {
+  const __nv_bfloat16* emb;
+  const __nv_bfloat16* awe;
+  const __nv_bfloat16* h;
+  const int* tok;
+  const int* parent;  // K2: the row whose state a beam continues
+  int D, E, X, Xq, H, Hp;
+  __device__ __forceinline__ const __nv_bfloat16* at(int r, int k) const {
+    if (k < D) return emb + (size_t)tok[r] * D + k;
+    if (k < X) return awe + (size_t)r * E + (k - D);
+    k -= Xq;
+    if (k >= 0 && k < H) return h + (size_t)(parent ? parent[r] : r) * Hp + k;
+    return nullptr;
+  }
+};
+// Phase A: [h | 0 .. Hq].
+struct HeadRows {
+  const __nv_bfloat16* h;
+  int H, Hp;
+  __device__ __forceinline__ const __nv_bfloat16* at(int r, int k) const {
+    return k < H ? h + (size_t)r * Hp + k : nullptr;
+  }
+};
+
+// The block's resident weight tiles of one phase: n m-tiles of 16 output
+// rows; tile t starts at shared row off[t] and has kind[t] parts of 16
+// rows each (3: W_fc's hi, mid and lo, summed by three MMAs into one
+// accumulator). Null off and kind: tile t at row 16 t, one part.
+struct Tiles {
+  const __nv_bfloat16* w;
+  int lw;  // shared row stride (elements)
+  int n;
+  const int* off;
+  const int* kind;
+  __device__ __forceinline__ int row(int t) const {
+    return off ? off[t] : 16 * t;
+  }
+  __device__ __forceinline__ int parts(int t) const {
+    return kind ? kind[t] : 1;
+  }
+};
+
+// Bytes of one split-k partial a warp hands on: per lane 8 float64 sums
+// and 8 float32 bounds.
+constexpr int RED_JOB_BYTES = 32 * (8 * 8 + 8 * 4);
+
+// How one row tile of rows8 rows (a multiple of 8) stages K columns in the
+// staging region: chunks of kc columns, rows ldb apart, in two buffers that
+// each hold NT x (KC + SPAD) elements (a tile of fewer rows stages wider
+// chunks, the whole K when it fits). The split-k partial sums go after the
+// first buffer when the whole K is one chunk, so that the staged rows
+// stay for the recomputation of elements (`fix`), else over the buffers.
+struct Chunks {
+  int kc, ldb, nch;
+  size_t red_off, red_bytes;  // bytes into the region, and how many
+  __device__ Chunks(const Dims& d, int rows8, int K) {
+    kc = min(K, ((d.NT * (d.KC + SPAD)) / rows8 - SPAD) & ~15);
+    ldb = kc + SPAD;
+    nch = (K + kc - 1) / kc;
+    red_off = nch == 1 ? 2 * (size_t)rows8 * ldb : 0;
+    red_bytes = mma_stage_bytes(d) - red_off;
+  }
+};
+
+// The work of one row tile of nt rows: pairs of (m-tile, 8 rows), each
+// split over wk warps by k-step while the pairs do not fill the warps (as
+// far as the staging region holds every job's partial sums). Job j is pair
+// j % npairs, k-part j / npairs; warp w holds the jobs w, w + WARPS, ...
+// (at most MAXJ).
+struct Work {
+  int n8s, npairs, wk, njobs;
+  __device__ Work(int nt, int nlog, size_t red_bytes) {
+    n8s = (nt + 7) / 8;
+    npairs = nlog * n8s;
+    wk = npairs >= WARPS ? 1 : WARPS / npairs;
+    const int slots = (int)(red_bytes / RED_JOB_BYTES);
+    if (wk > slots / npairs) wk = max(1, slots / npairs);
+    njobs = npairs * wk;
+  }
+};
+
+// Rows that a tile can hold so that its jobs fit MAXJ per warp.
+__device__ __forceinline__ int tile_rows(const Dims& d, int nlog) {
+  return min(d.NT, 8 * (WARPS * MAXJ / nlog));
+}
+
+// Stage columns [k0, k0 + kc) of the tile's rows (act[ts ..]) into buf,
+// rows ldb apart, the rows past nt (to a multiple of 8) zero.
+template <class Rows>
+__device__ __forceinline__ void stage_chunk(__nv_bfloat16* buf, int ldb,
+                                            const Rows& src, const int* act,
+                                            int ts, int nt, int n8s, int k0,
+                                            int kc, bool vec16,
+                                            const void* any) {
+  if (vec16) {
+    const int per = kc / 8;
+    for (int i = threadIdx.x; i < n8s * 8 * per; i += THREADS) {
+      const int rr = i / per, kk = (i - rr * per) * 8;
+      cp_async16(buf + rr * ldb + kk,
+                 rr < nt ? src.at(act[ts + rr], k0 + kk) : nullptr, any);
+    }
+  } else {
+    const int per = kc / 4;
+    for (int i = threadIdx.x; i < n8s * 8 * per; i += THREADS) {
+      const int rr = i / per, kk = (i - rr * per) * 4;
+      cp_async8(buf + rr * ldb + kk,
+                rr < nt ? src.at(act[ts + rr], k0 + kk) : nullptr, any);
+    }
+  }
+}
+
+// The warp's jobs on one staged chunk: k-steps [s0, s0 + nsteps) of the
+// whole K (the chunk's local steps 0 .. nsteps - 1); steps below xsteps
+// go to acc[.][0], the rest to acc[.][1]. Each k-step's tile is summed by
+// the tensor core from zero (its parts, at most parts_cap, into one
+// float32 accumulator) and added to the float64 sums; a second MMA on |a|
+// and |b| sums the products' magnitudes (sab), for the error bound.
+__device__ __forceinline__ void mma_chunk(const Tiles& tl, const Work& wk,
+                                          const __nv_bfloat16* buf, int ldb,
+                                          int s0, int nsteps, int xsteps,
+                                          int parts_cap,
+                                          double (&acc)[MAXJ][2][4],
+                                          float (&sab)[MAXJ][2][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  constexpr uint32_t ABS = 0x7fff7fffu;  // clears both bf16 sign bits
+#pragma unroll
+  for (int i = 0; i < MAXJ; ++i) {
+    const int job = warp + WARPS * i;
+    if (job < wk.njobs) {
+      const int pair = job % wk.npairs, kp = job / wk.npairs;
+      const int mt = pair / wk.n8s, n8 = pair - mt * wk.n8s;
+      const __nv_bfloat16* b = buf + (n8 * 8 + g) * ldb + 2 * t4;
+      const __nv_bfloat16* a =
+          tl.w + (size_t)(tl.row(mt) + g) * tl.lw + 2 * t4;
+      const int parts = min(tl.parts(mt), parts_cap);
+      int first = (kp - s0 % wk.wk) % wk.wk;
+      if (first < 0) first += wk.wk;
+      for (int st = first; st < nsteps; st += wk.wk) {
+        const int gs = s0 + st;
+        const uint32_t b0 = lds32(b + 16 * st), b1 = lds32(b + 16 * st + 8);
+        float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        uint32_t m0 = 0, m1 = 0, m2 = 0, m3 = 0;
+        for (int q = 0; q < parts; ++q) {
+          const __nv_bfloat16* aq = a + (size_t)q * 16 * tl.lw + 16 * gs;
+          const uint32_t a0 = lds32(aq), a1 = lds32(aq + 8 * tl.lw);
+          const uint32_t a2 = lds32(aq + 8), a3 = lds32(aq + 8 * tl.lw + 8);
+          mma16816(c, a0, a1, a2, a3, b0, b1);
+          if (q == 0) {
+            m0 = a0 & ABS; m1 = a1 & ABS; m2 = a2 & ABS; m3 = a3 & ABS;
+          }
+        }
+        if (gs < xsteps) {
+          mma16816(sab[i][0], m0, m1, m2, m3, b0 & ABS, b1 & ABS);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][0][e] += (double)c[e];
+        } else {
+          mma16816(sab[i][1], m0, m1, m2, m3, b0 & ABS, b1 & ABS);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][1][e] += (double)c[e];
+        }
+      }
+    }
+  }
+}
+
+// acc and sab of every pair (k-part 0) = the sum of its k-parts', in
+// k-part order: every job writes its partials to slot `job` of `red`, the
+// whole block adds them up, k-part 0 reads the sums back (the whole block;
+// only when wk.wk > 1, where every warp holds at most one job).
+__device__ __forceinline__ void reduce_split(const Work& wk, char* red,
+                                             double (&acc)[MAXJ][2][4],
+                                             float (&sab)[MAXJ][2][4]) {
+  constexpr int F = 32 * 8 * 8;  // the floats after the doubles
+  const int job = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (job < wk.njobs) {
+    char* base = red + (size_t)job * RED_JOB_BYTES;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      ((double*)base)[q * 32 + lane] = acc[0][q / 4][q % 4];
+      ((float*)(base + F))[q * 32 + lane] = sab[0][q / 4][q % 4];
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < wk.npairs * 256; i += THREADS) {
+    const int pair = i / 256, at = i % 256;
+    double* y = (double*)(red + (size_t)pair * RED_JOB_BYTES) + at;
+    float* b = (float*)(red + (size_t)pair * RED_JOB_BYTES + F) + at;
+    double ys = *y;
+    float bs = *b;
+    for (int kp = 1; kp < wk.wk; ++kp) {
+      const char* base = red + (size_t)(pair + kp * wk.npairs) * RED_JOB_BYTES;
+      ys += ((const double*)base)[at];
+      bs += ((const float*)(base + F))[at];
+    }
+    *y = ys;
+    *b = bs;
+  }
+  __syncthreads();
+  if (job < wk.npairs) {
+    const char* base = red + (size_t)job * RED_JOB_BYTES;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      acc[0][q / 4][q % 4] = ((const double*)base)[q * 32 + lane];
+      sab[0][q / 4][q % 4] = ((const float*)(base + F))[q * 32 + lane];
+    }
+  }
+}
+
+// The products of the resident tiles with one row tile's inputs (K columns,
+// a multiple of 16): staged chunk by chunk, double-buffered, each chunk as
+// wide as the staging region holds for the tile's rows (the whole K when
+// the rows are few); on return the warps' jobs below wk.npairs hold the
+// sums (the whole block).
+// The products of the resident tiles with one row tile's inputs (K columns,
+// a multiple of 16): staged chunk by chunk as `ch` says, double-buffered;
+// on return the warps' jobs below wk.npairs hold the sums (the whole
+// block).
+template <class Rows>
+__device__ void mma_rows(const Dims& d, const Smem& s, const Rows& src,
+                         const int* act, int ts, int nt, const Tiles& tl,
+                         const Chunks& ch, const Work& wk, int K, int xsteps,
+                         int parts_cap, const void* any,
+                         double (&acc)[MAXJ][2][4],
+                         float (&sab)[MAXJ][2][4]) {
+#pragma unroll
+  for (int i = 0; i < MAXJ; ++i)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      acc[i][q / 4][q % 4] = 0.0;
+      sab[i][q / 4][q % 4] = 0.0f;
+    }
+  const bool vec16 = ((d.D | d.E | d.H) & 7) == 0;
+  const int kc = ch.kc, ldb = ch.ldb, nch = ch.nch;
+  __nv_bfloat16* buf0 = s.xb;
+  __nv_bfloat16* buf1 = s.xb + (size_t)wk.n8s * 8 * ldb;
+  stage_chunk(buf0, ldb, src, act, ts, nt, wk.n8s, 0, kc, vec16, any);
+  cp_commit();
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch) {
+      const int k1 = (c + 1) * kc;
+      stage_chunk((c & 1) ? buf0 : buf1, ldb, src, act, ts, nt, wk.n8s, k1,
+                  min(kc, K - k1), vec16, any);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    mma_chunk(tl, wk, (c & 1) ? buf1 : buf0, ldb, c * kc / 16,
+              min(kc, K - c * kc) / 16, xsteps, parts_cap, acc, sab);
+    __syncthreads();
+  }
+  if (wk.wk > 1) reduce_split(wk, (char*)s.xb + ch.red_off, acc, sab);
+}
+
+// The float64 sums of the tensor-core path are exact up to the tensor
+// core's own rounding inside each k-step, which BOUND x (the sum of the
+// products' magnitudes) bounds. A sum is rounded to T at flax's point only
+// where every value within that bound rounds alike (rounding is monotone,
+// so the two ends decide); else the element is recomputed in float64 on
+// CUDA cores (`fix` lists it), so the rounded value is always that of the
+// float64 sum, as in the plain version.
+constexpr double BOUND = 1.0 / (1 << 22);
+// Elements a block may list for recomputation per row tile: every element
+// of the tile (WARPS x MAXJ jobs of 16 x 8), with 5 words each.
+constexpr int FIXCAP = WARPS * MAXJ * 128;
+constexpr int FIXWORDS = 5;
+// The first FIXS of them are listed in shared memory, the rest in `fix`.
+constexpr int FIXS = 64;
+
+// Entry i of a row tile's list of elements to recompute.
+__device__ __forceinline__ int* fix_entry(int* sfix, int* gfix, int i) {
+  return i < FIXS ? sfix + i * FIXWORDS : gfix + (size_t)(i - FIXS) * FIXWORDS;
+}
+
+template <typename T>
+__device__ __forceinline__ bool rounds_alike(double y, float sab,
+                                             float* out) {
+  const double m = BOUND * (double)sab;
+  const float lo = rnd64<T>(y - m);
+  *out = lo;
+  return lo == rnd64<T>(y + m);
+}
+
+// List element (n, m) of the tile for recomputation, with its tensor-core
+// sums and bounds (for the record of how far they were off).
+__device__ __forceinline__ void fix_push(int* sfix, int* fix, int* count,
+                                         int n, int m, double y0, float s0,
+                                         double y1, float s1) {
+  int* f = fix_entry(sfix, fix, atomicAdd(count, 1));
+  f[0] = (n << 16) | m;
+  f[1] = __float_as_int((float)y0);
+  f[2] = __float_as_int(s0);
+  f[3] = __float_as_int((float)y1);
+  f[4] = __float_as_int(s1);
+}
+
+// The warp's float64 sums of w[k] x(k) over k in [0, split) (y0) and
+// [split, K) (y1), split and K multiples of 16: w a resident row (shared),
+// x a row source (global; read as written, not through the read-only path),
+// 8 (vec16) or 4 elements a load, the loads of four pieces in flight at
+// once. Every lane gets the sums.
+template <class Rows>
+__device__ __forceinline__ void warp_dot2(const __nv_bfloat16* w,
+                                          const Rows& src, int r, int split,
+                                          int K, bool vec16, double& y0,
+                                          double& y1) {
+  const int lane = threadIdx.x % 32;
+  const int step = vec16 ? 8 : 4;
+  double a0 = 0.0, a1 = 0.0;
+#pragma unroll 4
+  for (int k = step * lane; k < K; k += 32 * step) {
+    const __nv_bfloat16* xp = src.at(r, k);
+    uint4 xv = make_uint4(0u, 0u, 0u, 0u), wv = make_uint4(0u, 0u, 0u, 0u);
+    if (vec16) {
+      if (xp) xv = *reinterpret_cast<const uint4*>(xp);
+      wv = *reinterpret_cast<const uint4*>(w + k);
+    } else {
+      if (xp) {
+        const uint2 v = *reinterpret_cast<const uint2*>(xp);
+        xv.x = v.x;
+        xv.y = v.y;
+      }
+      const uint2 v = *reinterpret_cast<const uint2*>(w + k);
+      wv.x = v.x;
+      wv.y = v.y;
+    }
+    const __nv_bfloat162* xb = reinterpret_cast<const __nv_bfloat162*>(&xv);
+    const __nv_bfloat162* wb = reinterpret_cast<const __nv_bfloat162*>(&wv);
+    double part = 0.0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 xf = __bfloat1622float2(xb[i]);
+      const float2 wf = __bfloat1622float2(wb[i]);
+      part = fma((double)xf.x, (double)wf.x, part);
+      part = fma((double)xf.y, (double)wf.y, part);
+    }
+    if (k < split)
+      a0 += part;
+    else
+      a1 += part;
+  }
+  y0 = warp_sum(a0);
+  y1 = warp_sum(a1);
+}
+
+// As warp_dot2 with the row staged in shared memory (x, K elements).
+__device__ __forceinline__ void warp_dot2_staged(const __nv_bfloat16* w,
+                                                 const __nv_bfloat16* x,
+                                                 int split, int K,
+                                                 double& y0, double& y1) {
+  const int lane = threadIdx.x % 32;
+  double a0 = 0.0, a1 = 0.0;
+  for (int k = 8 * lane; k < K; k += 256) {
+    const uint4 xv = *reinterpret_cast<const uint4*>(x + k);
+    const uint4 wv = *reinterpret_cast<const uint4*>(w + k);
+    const __nv_bfloat162* xb = reinterpret_cast<const __nv_bfloat162*>(&xv);
+    const __nv_bfloat162* wb = reinterpret_cast<const __nv_bfloat162*>(&wv);
+    double part = 0.0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 xf = __bfloat1622float2(xb[i]);
+      const float2 wf = __bfloat1622float2(wb[i]);
+      part = fma((double)xf.x, (double)wf.x, part);
+      part = fma((double)xf.y, (double)wf.y, part);
+    }
+    if (k < split)
+      a0 += part;
+    else
+      a1 += part;
+  }
+  y0 = warp_sum(a0);
+  y1 = warp_sum(a1);
+}
+
+// Note a recomputed element in the block's record: one more, and the
+// largest |tensor-core sum - float64 sum| / bound seen.
+__device__ __forceinline__ void fix_note(int* stat, float y, float sab,
+                                         double exact) {
+  if (sab > 0.0f)
+    atomicMax(stat + 1, __float_as_int((float)(fabs((double)y - exact) /
+                                               (BOUND * (double)sab))));
+}
+
+// The block's resident slices, once per launch: rows m3map[b] of m3 (the x
+// part to [0, Xp), the h part to [Xq, Xq + Hp), zeros elsewhere) and rows
+// hmap[b] of mh, and the maps and the head's m-tiles into shared memory.
+// Zeroes the block's record of recomputed elements.
+template <typename T>
+__device__ void load_slices(const Params<T>& p, const Smem& s) {
+  const Dims& d = p.d;
+  const int* m3map = p.m3map + (size_t)blockIdx.x * d.R3;
+  const int* hmap = p.hmap + (size_t)blockIdx.x * d.RH;
+  const int lw3 = d.LDQ + SPAD, per3 = d.LDQ / 8;
+  for (int i = threadIdx.x; i < d.R3 * per3; i += THREADS) {
+    const int row = i / per3, k = (i - row * per3) * 8;
+    const int q = m3map[row];
+    const T* src = nullptr;
+    if (q >= 0 && k < d.Xp) {
+      src = p.m3 + (size_t)q * d.LDX + k;
+    } else if (q >= 0 && k >= d.Xq && k - d.Xq < d.Hp) {
+      src = p.m3 + (size_t)q * d.LDX + d.Xp + (k - d.Xq);
+    }
+    cp_async16(s.w3 + (size_t)row * lw3 + k, src, p.m3);
+  }
+  const int lwh = d.Hq + SPAD, perh = d.Hq / 8;
+  for (int i = threadIdx.x; i < d.RH * perh; i += THREADS) {
+    const int row = i / perh, k = (i - row * perh) * 8;
+    const int q = hmap[row];
+    cp_async16(s.wh + (size_t)row * lwh + k,
+               q >= 0 && k < d.Hp ? p.mh + (size_t)q * d.Hp + k : nullptr,
+               p.mh);
+  }
+  for (int i = threadIdx.x; i < d.R3; i += THREADS) {
+    const int q = m3map[i];  // 4 j + gate
+    s.m3map[i] = q;
+    s.bias3[i] = q >= 0 ? ldf(p.blstm + (q & 3) * d.H + (q >> 2)) : 0.0f;
+  }
+  for (int i = threadIdx.x; i < d.RH; i += THREADS) {
+    const int col = hmap[i];  // a head column on the rows of hi parts
+    s.hmap[i] = col;
+    s.biash[i] = col < 0 || col >= d.NH ? 0.0f
+                 : col < d.A            ? ldf(p.batt + col)
+                 : col < d.A + d.E      ? ldf(p.bf + col - d.A)
+                                        : ldf(p.bfc + col - d.A - d.E);
+  }
+  if (threadIdx.x < MAX_LT)
+    s.hkind[threadIdx.x] = p.hkind[(size_t)blockIdx.x * MAX_LT + threadIdx.x];
+  if (threadIdx.x < 2) {
+    s.own[threadIdx.x] = p.head_start[blockIdx.x + threadIdx.x];
+    s.own[2 + threadIdx.x] = p.unit_start[blockIdx.x + threadIdx.x];
+  }
+  if (threadIdx.x < 2) p.fixstat[2 * blockIdx.x + threadIdx.x] = 0;
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int off = 0;
+    for (int t = 0; t < MAX_LT; ++t) {
+      s.hoff[t] = off;
+      off += 16 * s.hkind[t];
+    }
+  }
+  __syncthreads();
+}
+
+// Phase A on the tensor cores: dp, gate and (with `logits`) the logits of
+// the active rows for the head columns this block owns, from h16 (buffer
+// hb). A head row's hmap entry is its column: [0, A) W_att, [A, A + E)
+// W_f, [A + E, NH) W_fc (hi part; mid and lo follow in its tile).
+template <typename T>
+__device__ void phase_head_mma(const Params<T>& p, const Smem& s,
+                               const int* act, int nact, int hb,
+                               bool logits) {
+  __shared__ int s_nfix, s_fix[FIXS * FIXWORDS];
+  const Dims& d = p.d;
+  const int c0 = s.own[0];
+  const int c1 = min(s.own[1], logits ? d.NH : d.A + d.E);
+  if (c0 >= c1) return;  // block-uniform; no grid.sync() inside
+  int nlog = 0;
+  while (nlog < MAX_LT && s.hkind[nlog] > 0) ++nlog;
+  const Tiles tl{s.wh, d.Hq + SPAD, nlog, s.hoff, s.hkind};
+  const HeadRows src{p.h16 + (size_t)hb * d.R * d.Hp, d.H, d.Hp};
+  const int* hmap = s.hmap;
+  const bool vec16 = ((d.D | d.E | d.H) & 7) == 0;
+  int* fix = p.fix + (size_t)blockIdx.x * FIXCAP * FIXWORDS;
+  int* stat = p.fixstat + 2 * blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rows = tile_rows(d, nlog);
+  for (int ts = 0; ts < nact; ts += rows) {
+    const int nt = min(rows, nact - ts);
+    const Chunks ch(d, (nt + 7) / 8 * 8, d.Hq);
+    const Work wk(nt, nlog, ch.red_bytes);
+    double acc[MAXJ][2][4];
+    float sab[MAXJ][2][4];
+    if (threadIdx.x == 0) s_nfix = 0;
+    mma_rows(d, s, src, act, ts, nt, tl, ch, wk, d.Hq, d.Hq / 16,
+             logits ? 3 : 1, p.emb, acc, sab);
+#pragma unroll
+    for (int i = 0; i < MAXJ; ++i) {
+      const int pair = warp + WARPS * i;
+      if (pair >= wk.npairs) continue;
+      const int mt = pair / wk.n8s, n8 = pair - mt * wk.n8s;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = n8 * 8 + 2 * t4 + (e & 1);
+        const int m = s.hoff[mt] + g + 8 * (e >> 1);
+        const int col = hmap[m];
+        if (n >= nt || col < 0) continue;
+        const int row = act[ts + n];
+        const double y = acc[i][0][e];
+        float v;
+        if (col < d.A + d.E) {
+          if (!rounds_alike<T>(y, sab[i][0][e], &v)) {
+            fix_push(s_fix, fix, &s_nfix, n, m, y, sab[i][0][e], 0.0, 0.0f);
+          } else if (col < d.A) {
+            p.dp[(size_t)row * d.A + col] =
+                rnd<T>(__fadd_rn(v, s.biash[m]));
+          } else {
+            p.gate[(size_t)row * d.E + col - d.A] =
+                sig<T>(rnd<T>(__fadd_rn(v, s.biash[m])));
+          }
+        } else if (logits) {
+          p.logits[(size_t)row * d.V + col - d.A - d.E] =
+              __fadd_rn((float)y, s.biash[m]);
+        }
+      }
+    }
+    __syncthreads();
+    const int nfix = s_nfix;
+    for (int it = warp; it < nfix; it += WARPS) {
+      const int* f = fix_entry(s_fix, fix, it);
+      const int n = f[0] >> 16, m = f[0] & 0xffff;
+      const int row = act[ts + n], col = hmap[m];
+      const __nv_bfloat16* w = s.wh + (size_t)m * (d.Hq + SPAD);
+      double y, unused;
+      if (ch.nch == 1)
+        warp_dot2_staged(w, s.xb + (size_t)n * ch.ldb, d.Hq, d.Hq, y,
+                         unused);
+      else
+        warp_dot2(w, src, row, d.Hq, d.Hq, vec16, y, unused);
+      if (lane == 0) {
+        fix_note(stat, __int_as_float(f[1]), __int_as_float(f[2]), y);
+        if (col < d.A)
+          p.dp[(size_t)row * d.A + col] =
+              rnd<T>(__fadd_rn(rnd64<T>(y), s.biash[m]));
+        else
+          p.gate[(size_t)row * d.E + col - d.A] =
+              sig<T>(rnd<T>(__fadd_rn(rnd64<T>(y), s.biash[m])));
+      }
+    }
+    if (threadIdx.x == 0) atomicAdd(stat, nfix);
+    __syncthreads();
+  }
+}
+
+// Phase D on the tensor cores: h16, c (buffer hb) -> buffer hb ^ 1 for the
+// active rows and the units this block owns.
+template <typename T>
+__device__ void phase_lstm_mma(const Params<T>& p, const Smem& s,
+                               const int* act, int nact, const int* tok,
+                               int hb) {
+  __shared__ int s_nfix, s_fix[FIXS * FIXWORDS];
+  const Dims& d = p.d;
+  const int j0 = s.own[2], j1 = s.own[3];
+  if (j0 >= j1) return;  // block-uniform
+  const __nv_bfloat16* h = p.h16 + (size_t)hb * d.R * d.Hp;
+  __nv_bfloat16* h2 = p.h16 + (size_t)(hb ^ 1) * d.R * d.Hp;
+  const float* c = p.c + (size_t)hb * d.R * d.H;
+  float* c2 = p.c + (size_t)(hb ^ 1) * d.R * d.H;
+  const int nlog = d.R3 / 16;
+  const Tiles tl{s.w3, d.LDQ + SPAD, nlog, nullptr, nullptr};
+  const LstmRows src{p.emb, p.awe16, h,   tok,  p.parent,
+                     d.D,   d.E,     d.X, d.Xq, d.H,      d.Hp};
+  const int* m3map = s.m3map;
+  int* fix = p.fix + (size_t)blockIdx.x * FIXCAP * FIXWORDS;
+  int* stat = p.fixstat + 2 * blockIdx.x;
+  const bool vec16 = ((d.D | d.E | d.H) & 7) == 0;
+  const int nu = j1 - j0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rows = tile_rows(d, nlog);
+  for (int ts = 0; ts < nact; ts += rows) {
+    const int nt = min(rows, nact - ts);
+    const Chunks ch(d, (nt + 7) / 8 * 8, d.LDQ);
+    const Work wk(nt, nlog, ch.red_bytes);
+    double acc[MAXJ][2][4];
+    float sab[MAXJ][2][4];
+    if (threadIdx.x == 0) s_nfix = 0;
+    mma_rows(d, s, src, act, ts, nt, tl, ch, wk, d.LDQ, d.Xq / 16, 1, p.emb,
+             acc, sab);
+    // Gate pre-activations: rnd(rnd(x W_x) + rnd(rnd(h W_h) + b)).
+#pragma unroll
+    for (int i = 0; i < MAXJ; ++i) {
+      const int pair = warp + WARPS * i;
+      if (pair >= wk.npairs) continue;
+      const int mt = pair / wk.n8s, n8 = pair - mt * wk.n8s;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = n8 * 8 + 2 * t4 + (e & 1);
+        const int m = mt * 16 + g + 8 * (e >> 1);
+        const int q = m3map[m];  // 4 j + gate
+        if (n >= nt || q < 0) continue;
+        float ax, ah;
+        const bool ok_x = rounds_alike<T>(acc[i][0][e], sab[i][0][e], &ax);
+        const bool ok_h = rounds_alike<T>(acc[i][1][e], sab[i][1][e], &ah);
+        if (ok_x && ok_h) {
+          s.pre[(size_t)n * d.R3 + m] =
+              rnd<T>(__fadd_rn(ax, rnd<T>(__fadd_rn(ah, s.bias3[m]))));
+        } else {
+          fix_push(s_fix, fix, &s_nfix, n, m, acc[i][0][e], sab[i][0][e],
+                   acc[i][1][e], sab[i][1][e]);
+        }
+      }
+    }
+    __syncthreads();
+    const int nfix = s_nfix;
+    for (int it = warp; it < nfix; it += WARPS) {
+      const int* f = fix_entry(s_fix, fix, it);
+      const int n = f[0] >> 16, m = f[0] & 0xffff;
+      const __nv_bfloat16* w = s.w3 + (size_t)m * (d.LDQ + SPAD);
+      double yx, yh;
+      if (ch.nch == 1)
+        warp_dot2_staged(w, s.xb + (size_t)n * ch.ldb, d.Xq, d.LDQ, yx, yh);
+      else
+        warp_dot2(w, src, act[ts + n], d.Xq, d.LDQ, vec16, yx, yh);
+      if (lane == 0) {
+        fix_note(stat, __int_as_float(f[1]), __int_as_float(f[2]), yx);
+        fix_note(stat, __int_as_float(f[3]), __int_as_float(f[4]), yh);
+        s.pre[(size_t)n * d.R3 + m] = rnd<T>(__fadd_rn(
+            rnd64<T>(yx), rnd<T>(__fadd_rn(rnd64<T>(yh), s.bias3[m]))));
+      }
+    }
+    if (threadIdx.x == 0) atomicAdd(stat, nfix);
+    __syncthreads();
+    for (int i = threadIdx.x; i < nt * nu; i += THREADS) {
+      const int n = i / nu, u = i - n * nu, j = j0 + u;
+      const int r = act[ts + n];
+      const float* gt = s.pre + (size_t)n * d.R3 + 4 * u;
+      const float ig = sig<T>(gt[0]);
+      const float fg = sig<T>(gt[1]);
+      const float gg = tnh<T>(gt[2]);
+      const float og = sig<T>(gt[3]);
+      const float cold = c[(size_t)src_row(p, r) * d.H + j];
+      const float cn = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(fg, cold)),
+                                        rnd<T>(__fmul_rn(ig, gg))));
+      c2[(size_t)r * d.H + j] = cn;
+      h2[(size_t)r * d.Hp + j] =
+          __float2bfloat16_rn(rnd<T>(__fmul_rn(og, tnh<T>(cn))));
+    }
+    __syncthreads();
+  }
+}
+
 // ---- set-up and launch ------------------------------------------------------
 
 // Row r's initial h (both buffers' padding zeroed) and c, from image r / K.
@@ -625,8 +1486,13 @@ __device__ void init_state(const Params<T>& p) {
        i += (size_t)gridDim.x * THREADS) {
     const int r = (int)(i / d.Hp), k = (int)(i % d.Hp);
     const size_t src = (size_t)(r / d.K) * d.H + k;
-    p.h[i] = k < d.H ? ldf(p.h0 + src) : 0.0f;
-    p.h[n + i] = 0.0f;
+    if constexpr (kMma<T>) {
+      p.h16[i] = k < d.H ? __ldg(p.h0 + src) : __float2bfloat16_rn(0.0f);
+      p.h16[n + i] = __float2bfloat16_rn(0.0f);
+    } else {
+      p.h[i] = k < d.H ? ldf(p.h0 + src) : 0.0f;
+      p.h[n + i] = 0.0f;
+    }
     if (k < d.H) p.c[(size_t)r * d.H + k] = ldf(p.c0 + src);
   }
 }
@@ -639,8 +1505,11 @@ __device__ inline int all_rows(int* act, int R) {
 }
 
 // Grid size for the cooperative launch: as many blocks as fit on the card
-// at once, at most one per LSTM unit. Returns a CUDA error code.
-template <typename Kernel>
+// at once, at most one per LSTM unit. The tensor-core path's shared memory
+// depends on the grid (its plan is made for it), so there a block is asked
+// to fit with all the shared memory a block may have. Returns a CUDA error
+// code.
+template <typename T, typename Kernel>
 int grid_size(Kernel kernel, const Dims& d, int* grid) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -649,7 +1518,15 @@ int grid_size(Kernel kernel, const Dims& d, int* grid) {
   if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const size_t smem = smem_bytes(d);
+  size_t smem = smem_bytes<T>(d);
+  if (kMma<T> && err == cudaSuccess) {
+    int optin = 0;
+    cudaFuncAttributes fa;
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+    if (err == cudaSuccess) smem = (size_t)optin - fa.sharedSizeBytes;
+  }
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -667,14 +1544,17 @@ template <typename T, typename Kernel>
 int launch(Kernel kernel, const void* const* ptrs, const Dims& d, int grid,
            cudaStream_t stream) {
   int most = 0;
-  int err = grid_size(kernel, d, &most);
+  int err = grid_size<T>(kernel, d, &most);
   if (err) return err;
   if (grid < 1 || grid > most) return (int)cudaErrorInvalidConfiguration;
+  if (kMma<T> && (d.NT < 8 || d.NT % 8 || d.KC < 16 || d.KC % 16 ||
+                  d.R3 < 16 || d.R3 % 16 || d.RH % 16))
+    return (int)cudaErrorInvalidValue;
   Params<T> params = make_params<T>(ptrs, d);
   void* args[] = {&params};
   return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
                                           dim3(THREADS), args,
-                                          smem_bytes(d), stream);
+                                          smem_bytes<T>(d), stream);
 }
 
 }  // namespace sd

@@ -149,13 +149,14 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS, 1) beam_decode_kernel(Params<T> p) {
   extern __shared__ double2 smem_raw[];
   const Dims& d = p.d;
-  const Smem s = carve(smem_raw, d);
+  const Smem s = carve<T>(smem_raw, d);
   cg::grid_group grid = cg::this_grid();
   // The rows of images still searching.
   int* act = p.rows + (size_t)blockIdx.x * 2 * d.R;
 
   stamp(p, 0);
   init_state(p);
+  if constexpr (kMma<T>) load_slices(p, s);
   for (size_t r = (size_t)blockIdx.x * THREADS + threadIdx.x; r < (size_t)d.R;
        r += (size_t)gridDim.x * THREADS) {
     p.tok[r] = BOS_TOK;
@@ -223,8 +224,11 @@ extern "C" {
 // As sd_fused_decode_grid, for K2 at dims[D_K] beams.
 int sd_fused_beam_grid(int dtype, const int* dims, int* grid) {
   const Dims d = make_dims(dims);
-  if (dtype == 0) return grid_size(beam_decode_kernel<float>, d, grid);
-  if (dtype == 1) return grid_size(beam_decode_kernel<__nv_bfloat16>, d, grid);
+  if (dtype == 0)
+    return grid_size<float>(beam_decode_kernel<float>, d, grid);
+  if (dtype == 1)
+    return grid_size<__nv_bfloat16>(beam_decode_kernel<__nv_bfloat16>, d,
+                                    grid);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,7 +11,9 @@
 // The step runs on the engine of decode_step.cuh, which says what bounds it
 // and how the work is spread over the card: one cooperative launch, every
 // block owning a slice of every matrix's columns, four grid barriers per
-// step. The loop is skewed by one phase so that the head of step t shares
+// step; phases A and D on the tensor cores for bfloat16 streams (the
+// block's slices resident in shared memory for the launch), on CUDA cores
+// in float64 for float32 streams. The loop is skewed by one phase so that the head of step t shares
 // phase A with the projections of step t + 1:
 //
 //   prologue  A (dp, gate from h0) | sync
@@ -35,7 +37,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   extern __shared__ double2 smem_raw[];
   __shared__ int s_nact;
   const Dims& d = p.d;
-  const Smem s = carve(smem_raw, d);
+  const Smem s = carve<T>(smem_raw, d);
   cg::grid_group grid = cg::this_grid();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // This block's copy of the active rows and of each row's next token.
@@ -44,6 +46,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   stamp(p, 0);
   init_state(p);
+  if constexpr (kMma<T>) load_slices(p, s);
   for (int i = threadIdx.x; i < d.R; i += THREADS) tok[i] = BOS_TOK;
   int nact = all_rows(act, d.R);
   grid.sync();
@@ -113,9 +116,11 @@ extern "C" {
 // card runs at once to *grid. Returns a CUDA error code (0 on success).
 int sd_fused_decode_grid(int dtype, const int* dims, int* grid) {
   const Dims d = make_dims(dims);
-  if (dtype == 0) return grid_size(greedy_decode_kernel<float>, d, grid);
+  if (dtype == 0)
+    return grid_size<float>(greedy_decode_kernel<float>, d, grid);
   if (dtype == 1)
-    return grid_size(greedy_decode_kernel<__nv_bfloat16>, d, grid);
+    return grid_size<__nv_bfloat16>(greedy_decode_kernel<__nv_bfloat16>, d,
+                                    grid);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,7 +14,9 @@ Beside the kernel is its plain version, :func:`fused_beam_decode_plain`,
 which steps the same search in Python with PyTorch ops. The wrapper
 :func:`fused_beam_decode_packed` takes the plain version only for tensors
 on the CPU; for CUDA tensors it launches the kernel or raises.
-``launch_count`` counts the kernel's launches.
+``launch_count`` counts the kernel's launches, ``engine_launches`` the
+same launches by path (``fused_decode.ENGINES``: bfloat16 streams on the
+tensor cores, float32 on CUDA cores in float64).
 
 Numerics follow K1 (``models/decoder.py``), and the search follows the TPU
 kernel: the log-softmax is JAX's formula on the float32 logits (``x - max``,
@@ -30,13 +32,15 @@ import torch
 
 from stroke_derenderer_tpu_torch.config import BOS, EOS, PAD
 from stroke_derenderer_tpu_torch.kernels.fused_decode import (
-    _MATRICES, _check, decode_sharded, launch_step_kernel, pack_step_weights,
-    step_weights,
+    _MATRICES, ENGINES, _check, decode_sharded, launch_step_kernel,
+    pack_step_weights, step_weights,
 )
 from stroke_derenderer_tpu_torch.models.decoder import decode_step
 
 # Launches of the CUDA kernel since import (or since a caller reset it).
 launch_count = 0
+# Launches by path since import (never reset by the wrappers' callers).
+engine_launches = {"f64": 0, "mma": 0}
 
 # Grid barriers per decode step.
 BARRIERS_PER_STEP = 5
@@ -171,6 +175,7 @@ def fused_beam_decode_packed(enc, enc_proj, h0, c0, w: dict, max_length: int,
                        max_length, {"preds": preds, "score_out": score,
                                     "lens_out": lens})
     launch_count += 1
+    engine_launches[ENGINES[enc.dtype]] += 1
     return preds, score, lens
 
 

@@ -7,18 +7,25 @@ is ``csrc/fused_decode.cu``, on the step engine ``csrc/decode_step.cuh``
 that it shares with K2; the header says what bounds a step on an H100 and
 what the design does about that. In short: one cooperative launch per
 decode call, every block of the grid owning a slice of every matrix's
-output columns, four grid barriers per step.
+output columns, four grid barriers per step. The stream type picks the
+path of its LSTM and head phases when the kernel is built (``ENGINES``):
+bfloat16 streams run them on the tensor cores over weight slices resident
+in shared memory ("mma"), float32 streams on CUDA cores in float64
+("f64").
 
 This module also holds the host side of that engine, for K1 and K2 alike:
 :func:`pack_step_weights` (the column-major weight layout, made once per
-model), :func:`step_plan` (which columns each block owns) and
-:func:`launch_step_kernel` (scratch, grid and launch).
+model), :func:`step_plan` (which columns each block owns),
+:func:`mma_slices` and :func:`mma_plan` (the tensor-core path's resident
+slices and shared-memory plan) and :func:`launch_step_kernel` (scratch,
+grid and launch).
 
 Beside the kernel is its plain version, :func:`fused_greedy_decode_plain`,
 which steps the same loop in Python with PyTorch ops. The wrapper
 :func:`fused_greedy_decode_packed` takes the plain version only for tensors
 on the CPU; for CUDA tensors it launches the kernel or raises.
-``launch_count`` counts the kernel's launches.
+``launch_count`` counts the kernel's launches, ``engine_launches`` the
+same launches by path.
 """
 
 from __future__ import annotations
@@ -39,6 +46,12 @@ launch_count = 0
 BARRIERS_PER_STEP = 4
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The path of phases A and D for each stream type (fixed when the kernel is
+# built: csrc/decode_step.cuh's kMma): "mma" on the tensor cores, "f64" on
+# CUDA cores in float64.
+ENGINES = {torch.float32: "f64", torch.bfloat16: "mma"}
+# Launches by path since import (never reset by the wrappers' callers).
+engine_launches = {"f64": 0, "mma": 0}
 _MATRICES = ("watt", "v", "wf", "wx", "wh", "wfc")
 # The pointer and dimension arrays of the C entry points, in the order of
 # ``enum Ptr`` and ``enum Dim`` in csrc/decode_step.cuh.
@@ -49,12 +62,52 @@ STEP_POINTERS = (
     "h", "c", "dp", "gate", "sc", "awe", "logits", "rows",
     "tok", "parent", "score", "fin", "len", "done", "steps",
     "bp_parent", "bp_write",
-    "preds", "score_out", "lens_out", "stamps")
-STEP_DIMS = ("B", "P", "E", "A", "H", "D", "V", "K", "max_length")
+    "preds", "score_out", "lens_out", "stamps",
+    "mh", "m3map", "hmap", "hkind", "h16", "awe16", "fix", "fixstat")
+STEP_DIMS = ("B", "P", "E", "A", "H", "D", "V", "K", "max_length",
+             "NT", "KC", "R3", "RH")
+# Pointers only one path reads (null for the other).
+MMA_ONLY = ("mh", "m3map", "hmap", "hkind", "h16", "awe16", "fix", "fixstat")
+F64_ONLY = ("h", "awe")
+
+# The tensor-core path's constants, as in csrc/decode_step.cuh.
+MMA_WARPS = 16     # WARPS
+MMA_MAXJ = 1       # MAXJ: (m-tile, 8-row) jobs a warp holds
+# FIXCAP, FIXWORDS: a block's list of elements to recompute in float64.
+MMA_FIXCAP = MMA_WARPS * MMA_MAXJ * 128
+MMA_FIXWORDS = 5
+MMA_SPAD = 8       # SPAD: bf16 padding after every shared row
+MMA_MAX_LT = 16    # MAX_LT: head m-tiles a block may own
+# Shared memory a block may have on an H100 (and H200), and what is kept
+# back for the kernels' static shared variables (about 3 KB on the
+# tensor-core path: two lists of FIXS = 64 elements to recompute).
+SMEM_PER_BLOCK = 232448
+SMEM_STATIC_RESERVE = 4096
+# (rows staged at a time, columns staged at a time), most preferred first:
+# two buffers of rows x (columns + MMA_SPAD) bf16.
+MMA_STAGING = ((128, 128), (128, 64), (64, 128), (64, 64), (64, 32),
+               (32, 64), (32, 32), (32, 16), (16, 16), (8, 16))
 
 
 def _round8(n: int) -> int:
     return (n + 7) // 8 * 8
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def split_bf16x3(x):
+    """A float32 tensor as three bfloat16 tensors (hi, mid, lo) whose sum
+    is ``x`` exactly: hi = x rounded to bfloat16, mid = the rest rounded,
+    lo = what is left (8 significant bits at most, so exact for 2^-110 <=
+    |x| <= 3.39e38, bfloat16's largest finite value). Each
+    difference is exact in float32 (its operands lie within a factor of
+    two of each other)."""
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
 
 
 def pack_step_weights(w: dict) -> dict:
@@ -67,7 +120,11 @@ def pack_step_weights(w: dict) -> dict:
     - ``m3`` (4H, Xp + Hp): row 4j + g is gate g (i, f, g, o) of LSTM unit
       j: column gH + j of W_x (D + E values, padded to Xp), then the same
       column of W_h (H values, padded to Hp). A block owning unit j reads
-      rows 4j to 4j + 3, one contiguous stretch.
+      rows 4j to 4j + 3, one contiguous stretch;
+    - for bfloat16 weights (the tensor-core path) also ``mh`` (A + E + 3V,
+      Hp) bfloat16: the rows of ``m1``, then :func:`split_bf16x3` of
+      ``fc``: its hi, mid and lo parts, W_fc column n at rows A + E + n,
+      A + E + V + n and A + E + 2V + n.
 
     The biases, v and the embedding are passed as they are."""
     hdim = w["watt"].shape[0]
@@ -87,6 +144,9 @@ def pack_step_weights(w: dict) -> dict:
                     columns(unit_major(w["wh"]), hp)], dim=1)
     packed = {"m1": m1.contiguous(), "fc": columns(w["wfc"], hp).contiguous(),
               "m3": m3.contiguous()}
+    if m1.dtype == torch.bfloat16:
+        packed["mh"] = torch.cat([packed["m1"], *split_bf16x3(packed["fc"])]
+                                 ).contiguous()
     packed.update({k: w[k] for k in ("batt", "v", "bv", "bf", "blstm", "emb",
                                      "bfc")})
     return packed
@@ -113,6 +173,93 @@ def step_plan(n_blocks: int, a: int, e: int, v: int, hdim: int) -> dict:
     blocks = np.arange(n_blocks + 1, dtype=np.int64)
     return {"head_start": (blocks * (a + e + v) // n_blocks).astype(np.int32),
             "unit_start": (blocks * hdim // n_blocks).astype(np.int32)}
+
+
+def mma_slices(n_blocks: int, dims: dict) -> dict:
+    """The tensor-core path's resident slices for the plan of
+    :func:`step_plan` over ``n_blocks`` blocks (``dims`` as the launch's:
+    A, E, V, H). Block b keeps in shared memory:
+
+    - ``m3map[b]`` (R3 rows, R3 the most any block needs, rounded up to
+      16): the rows 4j .. 4j + 3 of ``m3`` of its units j, in order, then
+      -1 (zeros);
+    - its head columns in m-tiles of 16: tile t holds columns c0 + 16t ..
+      (rows of ``mh`` = the column's index; -1 past the block's last
+      column), and where a tile holds any W_fc column, 16 rows of W_fc's
+      mid parts and 16 of its lo parts after it (-1 at W_att and W_f
+      columns). ``hkind[b][t]`` is 1 or 3 for those two shapes, 0 past
+      the block's tiles; ``hmap[b]`` (RH rows) lists the rows.
+
+    int32 numpy arrays, and the ints R3 and RH."""
+    a, e, v, hdim = dims["A"], dims["E"], dims["V"], dims["H"]
+    plan = step_plan(n_blocks, a, e, v, hdim)
+    us, hs = plan["unit_start"], plan["head_start"]
+    units = np.diff(us)
+    r3 = max(16, _round16(4 * int(units.max())))
+    m3map = np.full((n_blocks, r3), -1, np.int32)
+    heads, kinds = [], []
+    for b in range(n_blocks):
+        m3map[b, :4 * units[b]] = 4 * us[b] + np.arange(4 * units[b])
+        rows, kind = [], []
+        cols = np.arange(hs[b], hs[b + 1])
+        for t0 in range(0, len(cols), 16):
+            tile = cols[t0:t0 + 16]
+            fc = tile >= a + e
+            rows.append(np.pad(tile, (0, 16 - len(tile)),
+                               constant_values=-1))
+            kind.append(3 if fc.any() else 1)
+            if fc.any():
+                for part in (v, 2 * v):  # mid, lo
+                    rows.append(np.pad(np.where(fc, tile + part, -1),
+                                       (0, 16 - len(tile)),
+                                       constant_values=-1))
+        heads.append(np.concatenate(rows) if rows else np.zeros(0, int))
+        kinds.append(kind)
+    if max(len(k) for k in kinds) > MMA_MAX_LT:
+        raise ValueError(f"a block owns more than {MMA_MAX_LT} head m-tiles "
+                         f"at {n_blocks} blocks")
+    rh = max(len(r) for r in heads)
+    hmap = np.full((n_blocks, rh), -1, np.int32)
+    hkind = np.zeros((n_blocks, MMA_MAX_LT), np.int32)
+    for b in range(n_blocks):
+        hmap[b, :len(heads[b])] = heads[b]
+        hkind[b, :len(kinds[b])] = kinds[b]
+    return {"m3map": m3map, "hmap": hmap, "hkind": hkind, "R3": r3,
+            "RH": rh}
+
+
+def mma_smem_bytes(dims: dict, r3: int, rh: int, nt: int, kc: int) -> int:
+    """Dynamic shared memory of one tensor-core block (the layout of
+    ``carve`` in csrc/decode_step.cuh): phase C's doubles, the resident
+    [W_x | W_h] and head slices (rows padded by MMA_SPAD), the staging
+    region (two chunks of nt rows x kc columns, which after a tile's last
+    chunk hold its split-k partial sums), the gate pre-activations, the
+    block's maps, head m-tiles, plan entries and biases, and K2's
+    picks."""
+    xq, hq = _round16(dims["D"] + dims["E"]), _round16(dims["H"])
+    pp = (dims["P"] + 3) // 4 * 4
+    stage = 2 * 2 * nt * (kc + MMA_SPAD)
+    return (8 * (pp + MMA_WARPS * 32) + 2 * r3 * (xq + hq + MMA_SPAD)
+            + 2 * rh * (hq + MMA_SPAD) + stage + 4 * nt * r3
+            + 4 * (2 * MMA_MAX_LT + r3 + rh + 4) + 4 * (r3 + rh)
+            + 4 * 5 * dims["K"])
+
+
+def mma_plan(n_blocks: int, dims: dict) -> dict:
+    """:func:`mma_slices` and the staging shape for one launch: the first
+    (NT, KC) of ``MMA_STAGING`` whose shared memory fits a block and whose
+    row tiles keep every warp at most MMA_MAXJ jobs. Raises if none fits."""
+    sl = mma_slices(n_blocks, dims)
+    nlog = max(sl["R3"] // 16, int((sl["hkind"] > 0).sum(1).max()))
+    budget = SMEM_PER_BLOCK - SMEM_STATIC_RESERVE
+    for nt, kc in MMA_STAGING:
+        if nt > 8 * (MMA_WARPS * MMA_MAXJ // nlog):
+            continue
+        smem = mma_smem_bytes(dims, sl["R3"], sl["RH"], nt, kc)
+        if smem <= budget:
+            return sl | {"NT": nt, "KC": kc, "smem": smem}
+    raise ValueError(f"the tensor-core path's slices do not fit in shared "
+                     f"memory at {dims} over {n_blocks} blocks")
 
 
 def barrier_probe(n: int, grid: int, device) -> None:
@@ -171,13 +318,16 @@ _PLANS: dict = {}
 def launch_grid(name: str, dtype: torch.dtype, dims: dict, device) -> tuple:
     """The grid (blocks) of one cooperative launch of kernel ``name``
     ("fused_decode" or "fused_beam") at these dims, and the ownership plan
-    for it uploaded to ``device``; cached. Raises if the card cannot run the
-    launch (no cooperative launch, or no block fits on an SM)."""
+    for it uploaded to ``device`` (for the tensor-core path also
+    :func:`mma_plan`'s maps and its NT, KC, R3 and RH); cached. Raises if
+    the card cannot run the launch (no cooperative launch, or no block fits
+    on an SM)."""
     key = (name, _DTYPE_CODE[dtype], str(device),
-           *(dims[k] for k in STEP_DIMS if k not in ("B", "max_length")))
+           *(dims[k] for k in STEP_DIMS[:9] if k not in ("B", "max_length")))
     if key not in _PLANS:
         _, _, grid_fn = _library(name)
-        arr = (ctypes.c_int * len(STEP_DIMS))(*(dims[k] for k in STEP_DIMS))
+        arr = (ctypes.c_int * len(STEP_DIMS))(*(dims.get(k, 0)
+                                                for k in STEP_DIMS))
         grid = ctypes.c_int(0)
         with torch.cuda.device(device):
             rc = grid_fn(_DTYPE_CODE[dtype], ctypes.cast(arr, ctypes.c_void_p),
@@ -187,18 +337,28 @@ def launch_grid(name: str, dtype: torch.dtype, dims: dict, device) -> tuple:
                                f"launch: CUDA error {rc}")
         plan = step_plan(grid.value, dims["A"], dims["E"], dims["V"],
                          dims["H"])
-        _PLANS[key] = (grid.value, {k: torch.from_numpy(t).to(device)
-                                    for k, t in plan.items()})
+        if ENGINES[dtype] == "mma":
+            mp = mma_plan(grid.value, dims)
+            plan |= {k: mp[k] for k in ("m3map", "hmap", "hkind")}
+        plan = {k: torch.from_numpy(t).to(device) for k, t in plan.items()}
+        if ENGINES[dtype] == "mma":
+            plan |= {k: mp[k] for k in ("NT", "KC", "R3", "RH")}
+        _PLANS[key] = (grid.value, plan)
     return _PLANS[key]
 
 
 def launch_step_kernel(name: str, enc, enc_proj, h0, c0, packed: dict,
                        k: int, max_length: int, outputs: dict) -> None:
     """One cooperative launch of K1 (``name`` "fused_decode", k = 1) or K2
-    ("fused_beam"): allocates the engine's scratch, fills the pointer array
-    in ``STEP_POINTERS`` order (``outputs`` gives preds and, for K2,
-    score_out and lens_out; optionally ``stamps``, int64 of at least 3 +
-    max_length x phases, for the phase clock) and raises on a non-zero CUDA
+    ("fused_beam"): allocates the engine's scratch (h and the attended
+    vector in float32 for the float64 path, in bfloat16 for the tensor-core
+    path), fills the pointer array in ``STEP_POINTERS`` order (``outputs``
+    gives preds and, for K2, score_out and lens_out; optionally ``stamps``,
+    int64 of at least 3 + max_length x phases, for the phase clock, and, on
+    the tensor-core path, ``fixstat``, int32 (grid, 2), for each block's
+    count of elements recomputed in float64 and the largest error of the
+    tensor-core sums among them as a share of their bound, a float32's bits;
+    a pointer of the other path is null) and raises on a non-zero CUDA
     error code."""
     b, p, e = enc.shape
     hdim = h0.shape[-1]
@@ -207,18 +367,27 @@ def launch_step_kernel(name: str, enc, enc_proj, h0, c0, packed: dict,
             "D": d, "V": v, "K": k, "max_length": max_length}
     dev = enc.device
     grid, plan = launch_grid(name, enc.dtype, dims, dev)
+    dims |= {n: plan.get(n, 0) for n in STEP_DIMS[9:]}
     rows = b * k
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     hp = _round8(hdim)
-    scratch = {"h": torch.empty((2, rows, hp), **f32),
-               "c": torch.empty((2, rows, hdim), **f32),
+    scratch = {"c": torch.empty((2, rows, hdim), **f32),
                "dp": torch.empty((rows, dims["A"]), **f32),
                "gate": torch.empty((rows, e), **f32),
                "sc": torch.empty((rows, (p + 3) // 4 * 4), **f32),
-               "awe": torch.empty((rows, e), **f32),
                "logits": torch.empty((rows, v), **f32),
                "rows": torch.empty((grid, 2 * rows), **i32)}
+    if ENGINES[enc.dtype] == "mma":
+        bf16 = dict(dtype=torch.bfloat16, device=dev)
+        scratch |= {"h16": torch.empty((2, rows, hp), **bf16),
+                    "awe16": torch.empty((rows, e), **bf16),
+                    "fix": torch.empty((grid, MMA_FIXCAP * MMA_FIXWORDS),
+                                       **i32),
+                    "fixstat": torch.empty((grid, 2), **i32)}
+    else:
+        scratch |= {"h": torch.empty((2, rows, hp), **f32),
+                    "awe": torch.empty((rows, e), **f32)}
     if name == "fused_beam":
         scratch.update(
             tok=torch.empty(rows, **i32), parent=torch.empty(rows, **i32),
@@ -229,6 +398,11 @@ def launch_step_kernel(name: str, enc, enc_proj, h0, c0, packed: dict,
             bp_write=torch.empty((b, max_length, k), **i32))
     tensors = {"enc": enc, "proj": enc_proj, "h0": h0, "c0": c0, **packed,
                **plan, **scratch, **outputs}
+    if ENGINES[enc.dtype] != "mma":
+        tensors = {n: t for n, t in tensors.items() if n not in MMA_ONLY}
+    elif "mh" not in packed:
+        raise ValueError("bfloat16 streams need pack_step_weights of "
+                         "bfloat16 weights (its mh)")
     ptrs = (ctypes.c_void_p * len(STEP_POINTERS))(
         *(tensors[n].data_ptr() if n in tensors else None
           for n in STEP_POINTERS))
@@ -296,6 +470,7 @@ def fused_greedy_decode_packed(enc, enc_proj, h0, c0, w: dict,
                        max_length,
                        {"preds": preds})
     launch_count += 1
+    engine_launches[ENGINES[enc.dtype]] += 1
     return preds
 
 

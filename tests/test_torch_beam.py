@@ -339,7 +339,8 @@ def test_launch_hands_the_engine_beam_state(monkeypatch, grid, k):
     _, ptrs, dims, got_grid = entry.calls[0]
     assert got_grid == grid and dims[fd.STEP_DIMS.index("K")] == k
     got = dict(zip(fd.STEP_POINTERS, ptrs))
-    assert [n for n, v in got.items() if v is None] == ["stamps"]
+    assert [n for n, v in got.items() if v is None] == ["stamps",
+                                                        *fd.MMA_ONLY]
     shape = lambda n: sizes[got[n]]
     assert shape("bp_parent") == shape("bp_write") == (b, 12, k)
     for n in ("tok", "parent", "score", "fin", "len"):

@@ -321,9 +321,11 @@ def test_launch_hands_the_engine_its_arrays(monkeypatch):
                           12, {"preds": preds})
     dtype, ptrs, dims, grid = entry.calls[0]
     assert (dtype, grid) == (0, 7)
-    assert dims == [3, 9, 16, 16, 16, 16, 51, 1, 12]
+    # float32 streams: the float64 path, no tensor-core plan.
+    assert dims == [3, 9, 16, 16, 16, 16, 51, 1, 12, 0, 0, 0, 0]
     got = dict(zip(fd.STEP_POINTERS, ptrs))
     assert got["enc"] == enc.data_ptr() and got["preds"] == preds.data_ptr()
     beam_only = {"tok", "parent", "score", "fin", "len", "done", "steps",
                  "bp_parent", "bp_write", "score_out", "lens_out"}
-    assert {n for n, v in got.items() if v is None} == beam_only | {"stamps"}
+    assert {n for n, v in got.items() if v is None} == beam_only | {
+        "stamps", *fd.MMA_ONLY}

@@ -39,7 +39,10 @@ def _shipped_decoder(dtype, dev):
 @pytest.mark.parametrize("b", [1, 6])
 def test_cuda_kernel_matches_plain_version(dtype, b):
     """K1 against its plain version on the shipped decoder, token for token
-    (both sum in float64 and round once), in one launch."""
+    (both round the float64 value of every sum once: float32 streams sum in
+    float64, bfloat16 ones on the tensor cores, rechecked in float64 where
+    the bound straddles a rounding), in one launch, on its stream type's
+    path."""
     dev = _card()
     dt = getattr(torch, dtype)
     dec = _shipped_decoder(dt, dev)
@@ -47,8 +50,11 @@ def test_cuda_kernel_matches_plain_version(dtype, b):
     enc = torch.from_numpy(np.maximum(rng.normal(1.0, 1.5, (b, 196, 512)),
                                       0).astype(np.float32)).to(dev, dt)
     before = fd.launch_count
+    by_path = dict(fd.engine_launches)
     got = fd.fused_greedy_decode(dec, enc, 384)
     assert fd.launch_count == before + 1
+    path = fd.ENGINES[dt]
+    assert fd.engine_launches == by_path | {path: by_path[path] + 1}
     ep, (h, c) = dec.project_encoding(enc), dec.init_state(enc)
     want = fd.fused_greedy_decode_plain(enc, ep, h, c, dec.weights(dt), 384)
     assert got.dtype == torch.int32 and got.shape == (b, 384)
@@ -648,3 +654,44 @@ def test_two_stage_on_card_matches_sequential_chunks(quant):
         assert len(a) == len(b)
         for (ax, ay), (bx, by) in zip(a, b):
             assert np.array_equal(ax, bx) and np.array_equal(ay, by)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,k", [("fused_decode", 1), ("fused_beam", 5)])
+def test_tensor_core_bound_holds(name, k):
+    """K1 and K2 on bfloat16 streams at 80 rows: some elements are
+    recomputed in float64, and among them the tensor-core sums stay within
+    their bound (the largest error as a share of it below 1); the kernels'
+    SASS holds HMMA in the bfloat16 instantiation only."""
+    dev = _card()
+    import re
+    import subprocess
+    from stroke_derenderer_tpu_torch.kernels import build
+    dec = _shipped_decoder(torch.bfloat16, dev)
+    enc = _enc(80 // k, torch.bfloat16, dev, 60)
+    ep, (h, c) = dec.project_encoding(enc), dec.init_state(enc)
+    b = enc.shape[0]
+    fixstat = torch.zeros((1024, 2), dtype=torch.int32, device=dev)
+    fd.launch_step_kernel(name, enc, ep.contiguous(), h.contiguous(),
+                          c.contiguous(), fd.step_weights(dec, torch.bfloat16),
+                          k, 384, {
+                              "preds": torch.zeros((b, k, 384),
+                                                   dtype=torch.int32,
+                                                   device=dev),
+                              "score_out": torch.zeros((b, k), device=dev),
+                              "lens_out": torch.zeros((b, k),
+                                                      dtype=torch.int32,
+                                                      device=dev),
+                              "fixstat": fixstat})
+    torch.cuda.synchronize()
+    stat = fixstat.cpu()
+    assert int(stat[:, 0].sum()) > 0
+    assert 0 < float(stat[:, 1].view(torch.float32).max()) < 1
+    tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build.BUILD /
+                                                    f"lib{name}.so")],
+                          capture_output=True, text=True, check=True).stdout
+    per_fn = re.split(r"Function : ", sass)[1:]
+    hmma = {f.split()[0]: len(re.findall(r"\bHMMA\b", f)) for f in per_fn}
+    assert any(n > 0 for f, n in hmma.items() if "I13__nv_bfloat16E" in f)
+    assert all(n == 0 for f, n in hmma.items() if "IfEEv" in f)
