@@ -16,7 +16,10 @@ which steps the same search in Python with PyTorch ops. The wrapper
 on the CPU; for CUDA tensors it launches the kernel or raises.
 ``launch_count`` counts the kernel's launches, ``engine_launches`` the
 same launches by path (``fused_decode.ENGINES``: bfloat16 streams on the
-tensor cores, float32 on CUDA cores in float64).
+tensor cores, float32 on CUDA cores in float64). While a profile records,
+each search adds ``fused_decode.decode_counts`` to
+``utils.profiling.COUNTERS``, an image's beams counted until its last one
+finished (its largest length).
 
 Numerics follow K1 (``models/decoder.py``), and the search follows the TPU
 kernel: the log-softmax is JAX's formula on the float32 logits (``x - max``,
@@ -32,10 +35,11 @@ import torch
 
 from stroke_derenderer_tpu_torch.config import BOS, EOS, PAD
 from stroke_derenderer_tpu_torch.kernels.fused_decode import (
-    _MATRICES, ENGINES, _check, decode_sharded, launch_step_kernel,
-    pack_step_weights, step_weights,
+    _MATRICES, ENGINES, _check, decode_counts, decode_sharded,
+    launch_step_kernel, pack_step_weights, step_weights,
 )
 from stroke_derenderer_tpu_torch.models.decoder import decode_step
+from stroke_derenderer_tpu_torch.utils.profiling import COUNTERS, recording
 
 # Launches of the CUDA kernel since import (or since a caller reset it).
 launch_count = 0
@@ -149,6 +153,13 @@ def _check_beam(enc, enc_proj, h0, c0, w: dict, k: int) -> None:
                          f"({w['emb'].shape[0]})")
 
 
+def beam_counts(lens: torch.Tensor, k: int, head: int, hdim: int,
+                fixstat: torch.Tensor | None = None) -> dict:
+    """``fused_decode.decode_counts`` of one search from its beams' lengths
+    (B, k), each image counted until its longest beam, on the host."""
+    return decode_counts(lens.cpu().amax(1), k, head, hdim, fixstat)
+
+
 def fused_beam_decode_packed(enc, enc_proj, h0, c0, w: dict, max_length: int,
                              k: int, packed: dict | None = None):
     """(preds (B, k, max_length) int32, score (B, k) float32, lens (B, k)
@@ -156,9 +167,13 @@ def fused_beam_decode_packed(enc, enc_proj, h0, c0, w: dict, max_length: int,
     in one cooperative launch, on ``packed`` (``pack_step_weights`` of
     ``w``, packed here when not given)."""
     global launch_count
+    head, hdim = enc_proj.shape[-1] + enc.shape[-1], h0.shape[-1]
     if enc.device.type == "cpu":
-        return fused_beam_decode_plain(enc, enc_proj, h0, c0, w, max_length,
-                                       k)
+        preds, score, lens = fused_beam_decode_plain(enc, enc_proj, h0, c0,
+                                                     w, max_length, k)
+        if recording():
+            COUNTERS.defer(beam_counts, lens, k, head, hdim)
+        return preds, score, lens
     if enc.device.type != "cuda":
         raise ValueError(f"no fused beam decode for device {enc.device}")
     _check_beam(enc, enc_proj, h0, c0, w, k)
@@ -170,12 +185,15 @@ def fused_beam_decode_packed(enc, enc_proj, h0, c0, w: dict, max_length: int,
     if b == 0 or max_length == 0:  # the state before the first step
         score.fill_(NEG_INF)[:, :1] = 0.0
         return preds, score, lens.fill_(0)
-    launch_step_kernel("fused_beam", enc, enc_proj, h0, c0,
-                       pack_step_weights(w) if packed is None else packed, k,
-                       max_length, {"preds": preds, "score_out": score,
-                                    "lens_out": lens})
+    launched = launch_step_kernel(
+        "fused_beam", enc, enc_proj, h0, c0,
+        pack_step_weights(w) if packed is None else packed, k, max_length,
+        {"preds": preds, "score_out": score, "lens_out": lens})
     launch_count += 1
     engine_launches[ENGINES[enc.dtype]] += 1
+    if recording():
+        COUNTERS.defer(beam_counts, lens, k, head, hdim,
+                       launched.get("fixstat"))
     return preds, score, lens
 
 

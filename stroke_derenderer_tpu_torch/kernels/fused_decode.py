@@ -25,7 +25,10 @@ which steps the same loop in Python with PyTorch ops. The wrapper
 :func:`fused_greedy_decode_packed` takes the plain version only for tensors
 on the CPU; for CUDA tensors it launches the kernel or raises.
 ``launch_count`` counts the kernel's launches, ``engine_launches`` the
-same launches by path.
+same launches by path. While a profile records, each decode, the plain
+version's too, adds :func:`decode_counts` to ``utils.profiling.COUNTERS``
+once the card has run it, from the launch's tokens and ``fixstat`` copied
+to the host when the counts are read: the recording launches no kernel.
 """
 
 from __future__ import annotations
@@ -35,10 +38,11 @@ import ctypes
 import numpy as np
 import torch
 
-from stroke_derenderer_tpu_torch.config import PAD
+from stroke_derenderer_tpu_torch.config import EOS, PAD
 from stroke_derenderer_tpu_torch.models.decoder import (
     F32_WEIGHTS, STEP_WEIGHTS, decode_step, greedy_loop,
 )
+from stroke_derenderer_tpu_torch.utils.profiling import COUNTERS, recording
 
 # Launches of the CUDA kernel since import (or since a caller reset it).
 launch_count = 0
@@ -348,7 +352,7 @@ def launch_grid(name: str, dtype: torch.dtype, dims: dict, device) -> tuple:
 
 
 def launch_step_kernel(name: str, enc, enc_proj, h0, c0, packed: dict,
-                       k: int, max_length: int, outputs: dict) -> None:
+                       k: int, max_length: int, outputs: dict) -> dict:
     """One cooperative launch of K1 (``name`` "fused_decode", k = 1) or K2
     ("fused_beam"): allocates the engine's scratch (h and the attended
     vector in float32 for the float64 path, in bfloat16 for the tensor-core
@@ -359,7 +363,9 @@ def launch_step_kernel(name: str, enc, enc_proj, h0, c0, packed: dict,
     count of elements recomputed in float64 and the largest error of the
     tensor-core sums among them as a share of their bound, a float32's bits;
     a pointer of the other path is null) and raises on a non-zero CUDA
-    error code."""
+    error code. Returns the launch's tensors by pointer name, its scratch
+    included (such as ``fixstat`` or K2's ``steps``), for a caller that
+    reads one once the launch has run."""
     b, p, e = enc.shape
     hdim = h0.shape[-1]
     v, d = packed["emb"].shape
@@ -414,6 +420,49 @@ def launch_step_kernel(name: str, enc, enc_proj, h0, c0, packed: dict,
     if rc != 0:
         raise RuntimeError(f"{name}: cooperative launch failed: CUDA error "
                            f"{rc}")
+    return tensors
+
+
+def greedy_steps(preds: torch.Tensor, max_length: int) -> torch.Tensor:
+    """Steps each greedy row ran: through its first EOS, else all
+    ``max_length``."""
+    eos = preds == EOS
+    return torch.where(eos.any(1), eos.int().argmax(1) + 1, max_length)
+
+
+def greedy_counts(preds: torch.Tensor, max_length: int, head: int,
+                  hdim: int, fixstat: torch.Tensor | None = None) -> dict:
+    """:func:`decode_counts` of one greedy decode from its tokens, counted
+    on the host: a kernel launched for the count, one the untraced path
+    never loads, would block the host while K1 runs."""
+    return decode_counts(greedy_steps(preds.cpu(), max_length), 1, head,
+                         hdim, fixstat)
+
+
+def decode_counts(steps: torch.Tensor, k: int, head: int, hdim: int,
+                  fixstat: torch.Tensor | None = None) -> dict:
+    """The counters of one decode, from ``steps``, the steps each row (K1,
+    k = 1) or each image's k beams (K2) ran:
+
+    - ``decode_row_slots``: the steps the launch ran (it steps until no row
+      is active, so the most any row needed) x its rows (images x k);
+    - ``decode_row_steps``: the row-steps the rows needed;
+    - on the tensor-core path (``fixstat``, (grid, 2) int32, given):
+      ``decode_fixed_elements``, the elements recomputed in float64, and
+      ``decode_fix_checked``, the elements whose rounding the bound decides
+      (csrc/decode_step.cuh): the ``head`` = A + E dp and gate columns of
+      every row in the prologue, then at every row-step the 4 x ``hdim``
+      LSTM gates and the ``head`` columns again (the logits are not
+      rounded there)."""
+    steps = steps.long().cpu()
+    rows = steps.shape[0] * k
+    need = k * int(steps.sum())
+    out = {"decode_row_slots": int(steps.max()) * rows if rows else 0,
+           "decode_row_steps": need}
+    if fixstat is not None:
+        out["decode_fixed_elements"] = int(fixstat.cpu()[:, 0].sum())
+        out["decode_fix_checked"] = rows * head + need * (4 * hdim + head)
+    return out
 
 
 def _check(enc, enc_proj, h0, c0, w: dict) -> None:
@@ -456,8 +505,13 @@ def fused_greedy_decode_packed(enc, enc_proj, h0, c0, w: dict,
     ``packed`` (:func:`pack_step_weights` of ``w``, packed here when not
     given)."""
     global launch_count
+    head, hdim = enc_proj.shape[-1] + enc.shape[-1], h0.shape[-1]
     if enc.device.type == "cpu":
-        return fused_greedy_decode_plain(enc, enc_proj, h0, c0, w, max_length)
+        preds = fused_greedy_decode_plain(enc, enc_proj, h0, c0, w,
+                                          max_length)
+        if recording():
+            COUNTERS.defer(greedy_counts, preds, max_length, head, hdim)
+        return preds
     if enc.device.type != "cuda":
         raise ValueError(f"no fused decode for device {enc.device}")
     _check(enc, enc_proj, h0, c0, w)
@@ -465,12 +519,15 @@ def fused_greedy_decode_packed(enc, enc_proj, h0, c0, w: dict,
                        device=enc.device)
     if enc.shape[0] == 0 or max_length == 0:
         return preds
-    launch_step_kernel("fused_decode", enc, enc_proj, h0, c0,
-                       pack_step_weights(w) if packed is None else packed, 1,
-                       max_length,
-                       {"preds": preds})
+    launched = launch_step_kernel(
+        "fused_decode", enc, enc_proj, h0, c0,
+        pack_step_weights(w) if packed is None else packed, 1, max_length,
+        {"preds": preds})
     launch_count += 1
     engine_launches[ENGINES[enc.dtype]] += 1
+    if recording():
+        COUNTERS.defer(greedy_counts, preds, max_length, head, hdim,
+                       launched.get("fixstat"))
     return preds
 
 

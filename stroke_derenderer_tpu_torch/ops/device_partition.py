@@ -31,6 +31,7 @@ from stroke_derenderer_tpu_torch.ops.connected import (
 from stroke_derenderer_tpu_torch.ops.grouping import (
     get_pad_edges, group_intervals,
 )
+from stroke_derenderer_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -75,16 +76,27 @@ def _axis_coords(src0, src_len, rs_len, pad0, out: int):
 def plan_partitions(img_bin: np.ndarray, margin: int, out_size: int
                     ) -> PartitionPlan | None:
     """Islands -> groups -> per-group interpolation plan; None when the mask
-    has no foreground."""
+    has no foreground. The spans ``sd.strokes.components`` (the connected
+    components) and ``sd.strokes.grouping`` (the rest)."""
     img_bin = np.asarray(img_bin)
     if img_bin.ndim == 3:
         img_bin = img_bin[:, :, 0]
-    h, w = img_bin.shape
-    labels, boxes, areas = connected_components_with_boxes(
-        img_bin.astype(np.uint8), with_area=True)
+    with span("sd.strokes.components"):
+        labels, boxes, areas = connected_components_with_boxes(
+            img_bin.astype(np.uint8), with_area=True)
     if len(boxes) == 0:
         return None
+    with span("sd.strokes.grouping"):
+        return _plan_groups(labels, boxes, areas, img_bin.shape, margin,
+                            out_size)
 
+
+def _plan_groups(labels, boxes, areas, shape, margin: int, out_size: int
+                 ) -> PartitionPlan:
+    """:func:`plan_partitions` after the components: the islands' boxes
+    grown by ``margin`` and grouped, the label map and each group's
+    coordinates."""
+    h, w = shape
     exs = np.maximum(boxes[:, 0] - margin, 0)
     eys = np.maximum(boxes[:, 1] - margin, 0)
     exf = np.minimum(boxes[:, 0] + boxes[:, 2] + margin + 1, w)

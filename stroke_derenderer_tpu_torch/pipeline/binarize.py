@@ -23,6 +23,12 @@ multiple of dp) and sharded on dp, and, when tp divides the tile width
 columns of every tile (the 3x3 convolutions exchange halos, GroupNorm sums
 over tp). The masks are gathered over tp (columns) and dp (rows), so every
 rank holds all of them.
+
+While a profile records (``utils.profiling``), ``binarize_images`` is the
+span ``sd.binarize``, with ``prep`` (the host resize, the tile cut and
+stacking), ``launch`` (the upload and the enqueue of the device work),
+``wait`` (the blocking download) and ``unpack`` (the host stitch or the
+unpacking of the bits) inside it.
 """
 
 from __future__ import annotations
@@ -41,7 +47,9 @@ from stroke_derenderer_tpu_torch.ops.tiling import (
 from stroke_derenderer_tpu_torch.parallel.mesh import (
     padded_batch, spmd, tile_sharding,
 )
-from stroke_derenderer_tpu_torch.utils.profiling import download, upload
+from stroke_derenderer_tpu_torch.utils.profiling import (
+    download, span, upload,
+)
 from stroke_derenderer_tpu_torch.weights import (
     from_flax_unet, init_binarizer, read_msgpack,
 )
@@ -152,19 +160,25 @@ class Binarizer:
     def binarize_tiles(self, tiles_u8: np.ndarray) -> np.ndarray:
         """(T, H, W, C) uint8 tiles -> (T, H, W, 1) uint8 masks in {0, 255}."""
         t = tiles_u8.shape[0]
-        if self.mesh is None:
-            # The JAX package pads the batch on the host and uploads the
-            # pad tiles too; the port pads on the device and uploads T.
-            tb = _round_up(t, self.config.batch_bucket)
-            x = torch.zeros((tb,) + tiles_u8.shape[1:], dtype=torch.uint8,
-                            device=self.device)
-            x[:t] = self._upload(tiles_u8)
-            return download(self._mask(x)[:t])
-        tb = padded_batch(t, self.config.batch_bucket, self.mesh.shape["dp"])
-        x = np.zeros((tb,) + tiles_u8.shape[1:], np.uint8)
-        x[:t] = tiles_u8
-        local = self._upload(x[self.mesh.rows(tb)])
-        return download(self._sharded_mask(local)[:t])
+        with span("sd.binarize.launch"):
+            if self.mesh is None:
+                # The JAX package pads the batch on the host and uploads
+                # the pad tiles too; the port pads on the device and
+                # uploads T.
+                tb = _round_up(t, self.config.batch_bucket)
+                x = torch.zeros((tb,) + tiles_u8.shape[1:],
+                                dtype=torch.uint8, device=self.device)
+                x[:t] = self._upload(tiles_u8)
+                masks = self._mask(x)[:t]
+            else:
+                tb = padded_batch(t, self.config.batch_bucket,
+                                  self.mesh.shape["dp"])
+                x = np.zeros((tb,) + tiles_u8.shape[1:], np.uint8)
+                x[:t] = tiles_u8
+                local = self._upload(x[self.mesh.rows(tb)])
+                masks = self._sharded_mask(local)[:t]
+        with span("sd.binarize.wait"):
+            return download(masks)
 
     @torch.inference_mode()
     def _fused_batch(self, imgs_u8: np.ndarray, plan: TilePlan) -> torch.Tensor:
@@ -213,18 +227,23 @@ class Binarizer:
             nch = max(1, (len(idxs) + cfg.io_chunks - 1) // cfg.io_chunks)
             for c0 in range(0, len(idxs), nch):
                 chunk = idxs[c0:c0 + nch]
-                prepped = [_prep_line(images[i], cfg, keep_gray=True)
-                           for i in chunk]
-                cmax = max(p.shape[-1] for p in prepped)
-                batch = np.stack([p if p.shape[-1] == cmax
-                                  else np.repeat(p, cmax, axis=2)
-                                  for p in prepped])
-                pending.append((self._fused_batch(batch, plan), chunk, plan))
+                with span("sd.binarize.prep"):
+                    prepped = [_prep_line(images[i], cfg, keep_gray=True)
+                               for i in chunk]
+                    cmax = max(p.shape[-1] for p in prepped)
+                    batch = np.stack([p if p.shape[-1] == cmax
+                                      else np.repeat(p, cmax, axis=2)
+                                      for p in prepped])
+                with span("sd.binarize.launch"):
+                    pending.append((self._fused_batch(batch, plan), chunk,
+                                    plan))
         for packed, chunk, plan in pending:
-            masks = np.unpackbits(download(packed),
-                                  axis=-1)[:, :, :plan.img_width]
-            for j, i in enumerate(chunk):
-                out[i] = (masks[j] * 255).astype(np.uint8)[:, :, None]
+            with span("sd.binarize.wait"):
+                bits = download(packed)
+            with span("sd.binarize.unpack"):
+                masks = np.unpackbits(bits, axis=-1)[:, :, :plan.img_width]
+                for j, i in enumerate(chunk):
+                    out[i] = (masks[j] * 255).astype(np.uint8)[:, :, None]
 
     def binarize_image(self, image: np.ndarray) -> np.ndarray:
         """(H0, W0, C) uint8 -> (height, W_rs, 1) uint8 in {0, 255}; with
@@ -243,6 +262,10 @@ class Binarizer:
         ``config.fused_batch_min`` images (every group when ``fused``) go
         through the batched fused program, the rest through one bucketed
         tile batch."""
+        with span("sd.binarize"):
+            return self._binarize_images(images)
+
+    def _binarize_images(self, images) -> list[np.ndarray]:
         cfg = self.config
         if not len(images):
             return []
@@ -264,14 +287,17 @@ class Binarizer:
             self._binarize_images_fused(images, plans, fused_i, out)
         rest = [i for i in range(len(images)) if out[i] is None]
         if rest:
-            all_tiles = [cut_tiles_np(_prep_line(images[i], cfg), plans[i])
-                         for i in rest]
-            masks = self.binarize_tiles(np.concatenate(all_tiles, axis=0))
-            ofs = 0
-            for i, tiles in zip(rest, all_tiles):
-                n = tiles.shape[0]
-                out[i] = stitch_tiles_np(masks[ofs:ofs + n], plans[i])
-                ofs += n
+            with span("sd.binarize.prep"):
+                all_tiles = [cut_tiles_np(_prep_line(images[i], cfg),
+                                          plans[i]) for i in rest]
+                tiles_u8 = np.concatenate(all_tiles, axis=0)
+            masks = self.binarize_tiles(tiles_u8)
+            with span("sd.binarize.unpack"):
+                ofs = 0
+                for i, tiles in zip(rest, all_tiles):
+                    n = tiles.shape[0]
+                    out[i] = stitch_tiles_np(masks[ofs:ofs + n], plans[i])
+                    ofs += n
         return out  # type: ignore[return-value]
 
     def preprocess_image(self, image: np.ndarray):

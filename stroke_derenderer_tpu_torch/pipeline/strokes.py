@@ -34,6 +34,15 @@ rows are dealt round-robin in order of decreasing ink, so that each rank
 gets as many long glyphs as the others; rows are independent (under int8
 the scale is the max over the whole padded batch, wherever its rows lie),
 so the deal changes no output.
+
+While a profile records (``utils.profiling``), ``process_images`` is the
+span ``sd.strokes``; inside it ``components`` and ``grouping`` (the host
+plan, per image, then the packed group-id stack per chunk), ``gather``
+(the upload and the crop gather), ``encode`` (normalization, encoder,
+projection), ``decode`` (the decode launch and what it needs),
+``wait`` (the tokens' download), ``polylines`` (tokens to strokes, per
+image); a residual pass's spans, where on, lie inside ``sd.strokes`` as
+the first pass's do.
 """
 
 from __future__ import annotations
@@ -68,7 +77,9 @@ from stroke_derenderer_tpu_torch.ops.strokes import (
     sort_strokes,
 )
 from stroke_derenderer_tpu_torch.parallel.mesh import padded_batch, spmd
-from stroke_derenderer_tpu_torch.utils.profiling import download, upload
+from stroke_derenderer_tpu_torch.utils.profiling import (
+    download, span, upload,
+)
 from stroke_derenderer_tpu_torch.weights import (
     from_flax_decoder, from_flax_encoder, from_flax_projection,
     init_projection, init_strokes, read_msgpack,
@@ -240,33 +251,35 @@ class StrokeEstimator:
         if cfg.quant != "none":
             rows = (batch // mesh.shape["dp"] if mesh is not None
                     else -(-n // cfg.glyph_bucket) * cfg.glyph_bucket)
-        if rows > n:
-            crops = torch.cat([crops, crops.new_zeros((rows - n,)
-                                                      + crops.shape[1:])])
-        if rows == 0:  # a rank without rows of its own
-            seq = torch.zeros((0, cfg.encode_image_size ** 2,
-                               self.decoder.enc_att_w.shape[0]),
-                              device=self.device)
-        else:
-            with spmd(mesh):
-                images = self._normalize_raw(crops)
-                seq = encode_postprocess(self.encoder(images),
-                                         cfg.encode_image_size)[:n]
-        if self.projection is not None and n:
-            seq = linear(seq.to(self.compute_dtype), self.projection)
-        seq = seq.to(self.compute_dtype)
+        with span("sd.strokes.encode"):
+            if rows > n:
+                crops = torch.cat([crops, crops.new_zeros((rows - n,)
+                                                          + crops.shape[1:])])
+            if rows == 0:  # a rank without rows of its own
+                seq = torch.zeros((0, cfg.encode_image_size ** 2,
+                                   self.decoder.enc_att_w.shape[0]),
+                                  device=self.device)
+            else:
+                with spmd(mesh):
+                    images = self._normalize_raw(crops)
+                    seq = encode_postprocess(self.encoder(images),
+                                             cfg.encode_image_size)[:n]
+            if self.projection is not None and n:
+                seq = linear(seq.to(self.compute_dtype), self.projection)
+            seq = seq.to(self.compute_dtype)
         max_length = max_length or cfg.max_length
-        if mesh is not None:
+        with span("sd.strokes.decode"):
+            if mesh is not None:
+                if cfg.decode == "beam":
+                    return fused_beam_decode_sharded(
+                        self.decoder, seq, max_length, mesh, batch,
+                        cfg.beam_size, cfg.length_penalty)
+                return fused_greedy_decode_sharded(self.decoder, seq,
+                                                   max_length, mesh, batch)
             if cfg.decode == "beam":
-                return fused_beam_decode_sharded(
-                    self.decoder, seq, max_length, mesh, batch,
-                    cfg.beam_size, cfg.length_penalty)
-            return fused_greedy_decode_sharded(self.decoder, seq, max_length,
-                                               mesh, batch)
-        if cfg.decode == "beam":
-            return fused_beam_decode(self.decoder, seq, max_length,
-                                     cfg.beam_size, cfg.length_penalty)
-        return fused_greedy_decode(self.decoder, seq, max_length)
+                return fused_beam_decode(self.decoder, seq, max_length,
+                                         cfg.beam_size, cfg.length_penalty)
+            return fused_greedy_decode(self.decoder, seq, max_length)
 
     def _sharded_tokens(self, n: int, crops_of, max_length: int | None,
                         order=None) -> torch.Tensor:
@@ -310,7 +323,8 @@ class StrokeEstimator:
         (the vocabulary fits; half the bytes, as the JAX package downloads
         its device-partition tokens; its batched path also downloads its
         ``glyph_bucket`` pad rows, the port only the real ones)."""
-        return download(tokens.to(torch.int16)).astype(np.int32)
+        with span("sd.strokes.wait"):
+            return download(tokens.to(torch.int16)).astype(np.int32)
 
     @torch.inference_mode()
     def estimate_tokens(self, plan: PartitionPlan,
@@ -356,6 +370,11 @@ class StrokeEstimator:
         counts = [len(p.partitions) if p else 0 for p in plans]
         if sum(counts) == 0:
             return plans, counts, None
+        with span("sd.strokes.grouping"):
+            return plans, counts, self._stack_plans(masks, plans, counts)
+
+    def _stack_plans(self, masks, plans, counts) -> dict:
+        """:meth:`_plan_batch`'s ``rows`` from the images' plans."""
         # Width to a multiple of 256 here, so that _packed_gid pads nothing.
         gid_stack = np.full((len(masks), max(m.shape[0] for m in masks),
                              -(-max(m.shape[1] for m in masks) // 256) * 256),
@@ -374,7 +393,7 @@ class StrokeEstimator:
                 "ink": np.concatenate([p.ink for _, p in live])}
         for k in PartitionPlan.COORD_KEYS:
             rows[k] = np.concatenate([getattr(p, k) for _, p in live])
-        return plans, counts, rows
+        return rows
 
     def _batch_crops(self, rows: dict, idx):
         """The crops of the glyph rows ``idx`` of :meth:`_plan_batch`'s
@@ -383,11 +402,12 @@ class StrokeEstimator:
         ``glyph_bucket`` first, for its compile cache; the port sends the
         real rows)."""
         k = len(rows["gid"])
-        up = upload(self.device, *rows["gid"], rows["img_idx"][idx],
-                    rows["local_id"][idx],
-                    *(rows[c][idx] for c in PartitionPlan.COORD_KEYS))
-        return gather_crops_batched(_packed_arg(up, k), up[k], up[k + 1],
-                                    tuple(up[k + 2:]), rows["gid_fmt"])
+        with span("sd.strokes.gather"):
+            up = upload(self.device, *rows["gid"], rows["img_idx"][idx],
+                        rows["local_id"][idx],
+                        *(rows[c][idx] for c in PartitionPlan.COORD_KEYS))
+            return gather_crops_batched(_packed_arg(up, k), up[k], up[k + 1],
+                                        tuple(up[k + 2:]), rows["gid_fmt"])
 
     @torch.inference_mode()
     def _gather_batch(self, imgs_bin):
@@ -407,17 +427,19 @@ class StrokeEstimator:
         return self._batch_crops(rows, perm), inv, plans, counts
 
     def process_tokens(self, tokens: np.ndarray, partitions: list[dict]):
-        """Token matrix + partition transforms -> globally sorted strokes."""
+        """Token matrix + partition transforms -> globally sorted strokes
+        (the span ``sd.strokes.polylines``)."""
         cfg = self.config
         n = min(tokens.shape[0], len(partitions))
         if n == 0:
             return []
-        per_glyph = decode_tokens_batch(
-            np.asarray(tokens[:n]), cfg.image_size, cfg.tgt_shape,
-            np.asarray([partitions[i]["translate1"] for i in range(n)]),
-            np.asarray([partitions[i]["ratio"] for i in range(n)]),
-            np.asarray([partitions[i]["translate2"] for i in range(n)]))
-        return sort_strokes([s for glyph in per_glyph for s in glyph])
+        with span("sd.strokes.polylines"):
+            per_glyph = decode_tokens_batch(
+                np.asarray(tokens[:n]), cfg.image_size, cfg.tgt_shape,
+                np.asarray([partitions[i]["translate1"] for i in range(n)]),
+                np.asarray([partitions[i]["ratio"] for i in range(n)]),
+                np.asarray([partitions[i]["translate2"] for i in range(n)]))
+            return sort_strokes([s for glyph in per_glyph for s in glyph])
 
     def _host_crops(self, partitions: list[dict]) -> torch.Tensor:
         """The host partitions' uint8 crops on the device as float32 (the
@@ -571,6 +593,10 @@ class StrokeEstimator:
         Each pass, the first and every residual one, is one
         :meth:`_process_images_once` over the images still in it; an image
         whose residual pass decoded nothing leaves the loop."""
+        with span("sd.strokes"):
+            return self._process_images(imgs_bin, max_length)
+
+    def _process_images(self, imgs_bin, max_length: int | None = None):
         imgs_bin = list(imgs_bin)
         out = self._process_images_once(imgs_bin, max_length)
         if self.config.redecode_coverage > 0:

@@ -11,7 +11,9 @@ Endpoints (PNG body in, JSON out):
                       the input image's coordinates)
   GET  /healthz   -> {"ok": true}
   GET  /metrics   -> requests and errors by endpoint, the batch size
-                     histogram, per-stage latency quantiles and uptime, as
+                     histogram, per-stage latency quantiles (a batch's
+                     binarize and strokes calls, each request's wait in
+                     the queue until its batch started) and uptime, as
                      JSON or, with ?format=prom, as Prometheus text
 
 A body that is not a PNG gets 400, an unknown path 404, a batch that
@@ -56,7 +58,8 @@ class Metrics:
         self.errors: dict[str, int] = {}
         self.batches = 0
         self.batch_hist: dict[int, int] = {}   # batch size -> count
-        self.lat: dict[str, list[float]] = {"binarize": [], "strokes": []}
+        self.lat: dict[str, list[float]] = {"binarize": [], "strokes": [],
+                                            "queue": []}
 
     def count(self, endpoint: str, error: bool = False):
         with self._lock:
@@ -64,13 +67,18 @@ class Metrics:
             if error:
                 self.errors[endpoint] = self.errors.get(endpoint, 0) + 1
 
-    def batch(self, n: int, t_bin: float, t_se: float | None):
+    def batch(self, n: int, t_bin: float, t_se: float | None,
+              waits=()):
+        """One batch of ``n`` requests: its binarize and strokes seconds
+        (None: no strokes asked) and each request's seconds in the queue
+        until the batch started."""
         with self._lock:
             self.batches += 1
             self.batch_hist[n] = self.batch_hist.get(n, 0) + 1
             self.lat["binarize"].append(t_bin)
             if t_se is not None:
                 self.lat["strokes"].append(t_se)
+            self.lat["queue"].extend(waits)
             for k in self.lat:  # bounded memory: keep the last 1024
                 if len(self.lat[k]) > 1024:
                     del self.lat[k][:-1024]
@@ -122,6 +130,7 @@ class _Job:
         self.done = threading.Event()
         self.result: dict | None = None
         self.error: str | None = None
+        self.t_queued: float | None = None  # time.monotonic() at submit
 
 
 class BatchWorker(threading.Thread):
@@ -140,6 +149,7 @@ class BatchWorker(threading.Thread):
         self.q: queue.Queue[_Job | None] = queue.Queue()
 
     def submit(self, job: _Job):
+        job.t_queued = time.monotonic()
         self.q.put(job)
 
     def close(self):
@@ -169,6 +179,8 @@ class BatchWorker(threading.Thread):
                 self._process(jobs)
 
     def _process(self, jobs):
+        t_start = time.monotonic()
+        waits = [t_start - j.t_queued for j in jobs if j.t_queued is not None]
         try:
             t0 = time.time()
             bins = self.binarizer.binarize_images([j.img for j in jobs])
@@ -187,7 +199,7 @@ class BatchWorker(threading.Thread):
                 for (i, _), s in zip(stroke_jobs, lists):
                     stroke_results[i] = s
             self.metrics.batch(len(jobs), t_bin,
-                               t_se if stroke_jobs else None)
+                               t_se if stroke_jobs else None, waits)
             for i, (job, mask) in enumerate(zip(jobs, masks)):
                 out = {
                     "height": int(job.img.shape[0]),

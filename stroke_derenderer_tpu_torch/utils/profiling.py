@@ -13,6 +13,15 @@
   a card, CUDA activities) written as a Chrome trace into a directory.
 - :func:`chip_busy_ms`: the card's busy milliseconds in the newest such
   trace, the union of its kernel, memcpy and memset intervals.
+- :func:`span` and the process-wide :data:`SPANS`: the program's named
+  spans (``sd.<layer>[.<part>]``), which, while a ``torch.profiler``
+  profile records (:func:`recording`), land in its trace as
+  ``record_function`` ranges and in :data:`SPANS`; otherwise a span is a
+  shared null context, one flag read.
+- :class:`Counters` and the process-wide :data:`COUNTERS`: integers added
+  by name at the same sites, only while a profile records. The first span
+  or count of a new profile clears both, so that after a traced stretch
+  they hold that stretch's spans and counts alone.
 """
 
 from __future__ import annotations
@@ -20,13 +29,16 @@ from __future__ import annotations
 import collections
 import contextlib
 import gzip
+import itertools
 import json
 import threading
 import time
+import typing
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 class StageTimer:
@@ -115,6 +127,156 @@ class TransferLedger:
 
 
 LEDGER = TransferLedger()
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` profile is recording now (in this
+    process): the module-level flag that ``torch.autograd.profiler`` sets
+    while one is, read without a call into the profiler."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class SpanRecord(typing.NamedTuple):
+    """One closed span: ``parent`` is the ``id`` of the span open around it
+    on the same thread (None at the top), times are ``time.time()``
+    seconds, the clock a ``torch.profiler`` trace counts from its base."""
+    id: int
+    parent: int | None
+    name: str
+    start: float
+    end: float
+
+
+class _Span:
+    """One open span: a ``record_function`` range in the profile's trace,
+    and a :class:`SpanRecord` in its log when it closes."""
+
+    __slots__ = ("log", "name", "sid", "parent", "rf", "t0")
+
+    def __init__(self, log: SpanLog, name: str):
+        self.log, self.name = log, name
+
+    def __enter__(self):
+        stack = self.log._stack()
+        self.sid = next(self.log._ids)
+        self.parent = stack[-1] if stack else None
+        stack.append(self.sid)
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        self.t0 = time.time()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.time()
+        self.rf.__exit__(*exc)
+        self.log._stack().pop()
+        self.log._append(SpanRecord(self.sid, self.parent, self.name,
+                                    self.t0, t1))
+        return False
+
+
+class SpanLog:
+    """The spans closed while a profile recorded, in the order they closed.
+    Thread-safe; each thread nests its own spans."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._open = threading.local()
+        self._ids = itertools.count()
+        self._records: list[SpanRecord] = []
+
+    def _stack(self) -> list[int]:
+        return self._open.__dict__.setdefault("stack", [])
+
+    def _append(self, record: SpanRecord) -> None:
+        with self._lock:
+            self._records.append(record)
+
+    def open(self, name: str) -> _Span:
+        """A span of ``name`` around a ``with`` block."""
+        return _Span(self, name)
+
+    def records(self) -> list[SpanRecord]:
+        with self._lock:
+            return list(self._records)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._records.clear()
+
+
+class Counters:
+    """Integers added by name while a profile records, and counts deferred
+    until the card has done the work they read (:meth:`defer`). Thread-safe
+    like :class:`TransferLedger`."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts: dict[str, int] = collections.defaultdict(int)
+        self._pending: list = []
+
+    def add(self, name: str, n: int = 1) -> None:
+        if _recording_now():
+            with self._lock:
+                self._counts[name] += int(n)
+
+    def defer(self, counts, *args) -> None:
+        """While a profile records, keep ``counts(*args)``, which returns
+        {name: int} from tensors the card may still be writing (``args``,
+        held until then: a decode's tokens); it is called at the next
+        :meth:`snapshot`, after the profile, so the pipeline never waits
+        for it and the trace holds none of its work. A new profile drops
+        what was kept."""
+        if _recording_now():
+            with self._lock:
+                self._pending.append((counts, args))
+
+    def snapshot(self) -> dict[str, int]:
+        """Every count so far, the deferred ones included."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        done = [fn(*args) for fn, args in pending]
+        with self._lock:
+            for counts in done:
+                for name, n in counts.items():
+                    self._counts[name] += int(n)
+            return dict(self._counts)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._counts.clear()
+            self._pending.clear()
+
+
+SPANS = SpanLog()
+COUNTERS = Counters()
+_NOT_RECORDING = contextlib.nullcontext()
+_new_profile_lock = threading.Lock()
+_idle_seen = True   # a span or count has seen no profile since the last clear
+
+
+def _recording_now() -> bool:
+    """:func:`recording`; the first span or count of a profile that follows
+    one seen without it clears :data:`SPANS` and :data:`COUNTERS`, so they
+    hold the spans and counts of the newest profile alone."""
+    global _idle_seen
+    if not recording():
+        _idle_seen = True
+        return False
+    if _idle_seen:
+        with _new_profile_lock:
+            if _idle_seen:
+                SPANS.clear()
+                COUNTERS.clear()
+                _idle_seen = False
+    return True
+
+
+def span(name: str):
+    """The program's span ``name`` (``sd.`` and a dotted path of layers)
+    around a block: while a profile records, :meth:`SpanLog.open` of
+    :data:`SPANS`; otherwise a shared null context."""
+    return SPANS.open(name) if _recording_now() else _NOT_RECORDING
 
 
 def upload(device, *arrays) -> list[torch.Tensor]:

@@ -232,6 +232,24 @@ def test_metrics_json_and_prometheus(server):
     assert 'sd_stage_latency_seconds{stage="binarize",quantile="p50"}' in text
 
 
+def test_queue_wait_per_request(server):
+    """Each request's wait in the queue until its batch started is one
+    sample of the ``queue`` stage, in the JSON and the Prometheus text; a
+    lone request waits out the batch window."""
+    m = serve.Metrics()
+    m.batch(2, 0.5, None, [0.01, 0.03])
+    assert m.snapshot()["latency_s"]["queue"] == {
+        "p50": 0.02, "p90": 0.028, "p99": 0.0298, "n": 2}
+    assert m.snapshot()["latency_s"]["strokes"]["n"] == 0
+    url, worker = server
+    worker.metrics.lat["queue"].clear()
+    _post(url + "/binarize", encode_png(_image()))
+    q = json.loads(_get(url + "/metrics")[2])["latency_s"]["queue"]
+    assert q["n"] == 1 and q["p50"] >= worker.window_s
+    text = _get(url + "/metrics?format=prom")[2].decode()
+    assert 'sd_stage_latency_seconds{stage="queue",quantile="p50"}' in text
+
+
 def test_counters_hold_under_many_threads(server):
     """More request threads than cores with a short switch interval: every
     request is counted once."""
