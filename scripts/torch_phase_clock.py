@@ -13,12 +13,16 @@ the order A, B, B, A, to compare them on the same card.
 The rows are those of ``chip_smoke.py``: the golden image's glyphs (K1,
 and K2 at K = 5) and the 197 glyphs of the 45 smoke inputs in one batch
 (K1 at B = 197, K2 at 985 beams), encoded by ``models_demo``'s encoder in
-bfloat16, decoded with its decoder at up to 384 steps. For each case one
-JSON line: ms per launch (CUDA events around 3 launches after a warm-up),
-steps, the phase clock's microseconds per step of each phase (scores,
-attend, LSTM, head[, select], each with its grid barrier) and the tokens'
-digest (equal digests: equal tokens). The first line is the card's name
-and power limit.
+bfloat16, decoded with its decoder at up to 384 steps; and a page of the
+benchmark's ``page_beam`` traffic, the beams of one call: those glyphs
+repeated to PAGE_GLYPHS (480, a page's glyph rows) x 5 beams. For
+each case one JSON line: ms per launch (CUDA events around 3 launches
+after a warm-up), steps, the phase clock's microseconds per step of each
+phase (scores, attend, LSTM, head[, select], each with its grid barrier),
+the steps whose attended sum split an image's columns over blocks
+(``decode_attend_split_steps``; null for a tree without that record) and
+the tokens' digest (equal digests: equal tokens). The first line is the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from pathlib import Path
 
 MAX_LENGTH = 384
 BEAM = 5
+PAGE_GLYPHS = 480
 
 
 def main(argv=None) -> int:
@@ -87,10 +92,12 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         masks = [b[:, :, 0] > 127 for b in binarizer.binarize_images(imgs)]
         seqs = {"golden": encoded(masks[:1]), "batched": encoded(masks)}
+        reps = -(-PAGE_GLYPHS // seqs["batched"].shape[0])
+        seqs["page"] = seqs["batched"].repeat(reps, 1, 1)[:PAGE_GLYPHS]
         w = dec.weights(torch.bfloat16)
         packed = fd.pack_step_weights(w)
         for case, k in (("golden", 1), ("golden", BEAM), ("batched", 1),
-                        ("batched", BEAM)):
+                        ("batched", BEAM), ("page", BEAM)):
             enc = seqs[case].to(torch.bfloat16).contiguous()
             ep = dec.project_encoding(enc).contiguous()
             h, c = (t.contiguous() for t in dec.init_state(enc))
@@ -107,7 +114,8 @@ def main(argv=None) -> int:
             t = ms(run)
             stamps = torch.zeros(3 + MAX_LENGTH * nph, dtype=torch.int64,
                                  device=dev)
-            fd.launch_step_kernel(name, enc, ep, h, c, packed, k, MAX_LENGTH, {
+            launched = fd.launch_step_kernel(
+                name, enc, ep, h, c, packed, k, MAX_LENGTH, {
                 "preds": torch.zeros((b, k, MAX_LENGTH), dtype=torch.int32,
                                      device=dev),
                 "score_out": torch.zeros((b, k), device=dev),
@@ -115,6 +123,7 @@ def main(argv=None) -> int:
                                         device=dev),
                 "stamps": stamps})
             torch.cuda.synchronize()
+            astat = launched.get("astat")
             st = stamps.cpu().numpy().astype("float64")
             steps = int((st[3:] > 0).sum()) // nph
             per = (st[3:3 + steps * nph] - st[2:2 + steps * nph]).reshape(
@@ -124,6 +133,8 @@ def main(argv=None) -> int:
                 "case": case, "rows": b * k, "ms": t, "steps": steps,
                 "step_us": float(per.sum(1).mean()),
                 "phase_us": [float(x) for x in per.mean(0)],
+                "decode_attend_split_steps": None if astat is None
+                else int(astat[0]),
                 "tokens_sha1": hashlib.sha1(
                     tokens.cpu().numpy().tobytes()).hexdigest()[:16]}),
                 flush=True)

@@ -15,11 +15,14 @@
 //   B  (K1: every block takes the argmax of every row redundantly, in the
 //      same order, so that all blocks agree on which rows retire and leave
 //      the loop together; K2: a separate phase and barrier picks the beams)
-//      then the scores v . relu(enc_proj + dp) + b_v, a warp per (row,
-//      position) pair over the whole grid;
-//   C  the softmax over the positions (recomputed by each block for the
-//      rows it needs) and the attended sum alpha . enc times the gate, over
-//      (row, 32 encoder columns) units;
+//      then the scores v . relu(enc_proj + dp) + b_v over the whole grid, in
+//      tasks of (image, positions, beam) ordered so that the beams of one
+//      image read the same enc_proj bytes in the same warp instruction;
+//   C  per group of an image's rows (all K2's beams of it, up to ATT_G),
+//      the softmax over the positions once and the attended sum alpha . enc
+//      times the gate, each enc element read once for all the group's rows;
+//      with fewer groups than the grid holds, a group's columns are split
+//      over blocks and its positions over warps (AttTiling);
 //   D  the LSTM: a block owns whole units j, i.e. the gate columns j, H+j,
 //      2H+j and 3H+j of [W_x; W_h] ((D+E+H) x 4H), so it updates the cell of
 //      unit j with no further barrier.
@@ -127,6 +130,12 @@ constexpr float NEG_INF = -1e30f;
 constexpr int MAXJ = 1;     // (m-tile, 8-row) jobs a warp holds at once
 constexpr int SPAD = 8;     // bf16 padding after every shared row (banks)
 constexpr int MAX_LT = 16;  // head m-tiles a block may own (hkind's width)
+// Phases B and C.
+constexpr int ATT_G = 8;       // rows of one image in a phase-C group, at most
+constexpr int ATT_RED = 4096;  // bytes of one row's cross-warp partial sums
+                               // (WARPS x 32 columns of doubles)
+constexpr int ATT_OV = 2;      // a phase-C unit's fixed cost (softmax,
+                               // reduction), in 16ths of a full pass
 
 template <typename T>
 constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
@@ -145,6 +154,7 @@ enum Ptr {
   P_STAMPS,                                     // optional phase clock
   P_MH, P_M3MAP, P_HMAP, P_HKIND, P_H16, P_AWE16,  // tensor-core path
   P_FIX, P_FIXSTAT,
+  P_ASTAT,                                      // phase C's tiling record
   N_PTR
 };
 // Order of the int array of dimensions.
@@ -252,6 +262,9 @@ struct Params {
   int* fix;      // (grid, FIXCAP, FIXWORDS): elements to recompute
   int* fixstat;  // (grid, 2): elements recomputed, and the largest
                  // |tensor-core sum - float64 sum| / bound seen (float)
+  int* astat;    // 2 (null: off), written at the end of the launch: the
+                 // steps whose attended sum split a group's columns over
+                 // blocks, and the steps run
   Dims d;
 };
 
@@ -303,15 +316,17 @@ Params<T> make_params(const void* const* p, const Dims& d) {
   q.awe16 = (__nv_bfloat16*)p[P_AWE16];
   q.fix = (int*)p[P_FIX];
   q.fixstat = (int*)p[P_FIXSTAT];
+  q.astat = (int*)p[P_ASTAT];
   q.d = d;
   return q;
 }
 
-// Shared memory: dynamic, doubles first; the tensor-core path's regions
-// 16-byte aligned (cp.async and 16-byte loads).
+// Shared memory: dynamic; the regions 16-byte aligned (cp.async, 16-byte
+// loads and doubles).
 struct Smem {
-  double* alpha;  // Pp: a row's attention weights
-  double* part;   // WARPS x 32: phase C's per-warp partial sums
+  double* vs;     // A: v x Att<T>::UP, for phase B (loaded once a launch)
+  char* att;      // phase C (att_bytes), over xs or xb: those are only
+                  // used inside phases A and D
   float* xs;      // CUDA cores: TILE x LDX, a tile's staged inputs
   float* pre;     // CUDA cores: TILE x 4 UNIT_CHUNK, gate pre-activations;
                   // tensor cores: NT x R3
@@ -341,32 +356,48 @@ __host__ __device__ inline size_t mma_stage_bytes(const Dims& d) {
   return 2 * 2 * (size_t)d.NT * (d.KC + SPAD);
 }
 
+// Phase C's region: the softmax weights of a group's rows (att_rows x Pp
+// doubles) and at least one row of cross-warp partial sums (ATT_RED).
+__host__ __device__ inline int att_rows(const Dims& d) {
+  return d.K < ATT_G ? d.K : ATT_G;
+}
+__host__ __device__ inline size_t att_bytes(const Dims& d) {
+  return sizeof(double) * (size_t)att_rows(d) * d.Pp + ATT_RED;
+}
+// The region that phases A and D stage in and C works in.
+template <typename T>
+__host__ __device__ inline size_t work_bytes(const Dims& d) {
+  const size_t own = kMma<T> ? mma_stage_bytes(d)
+                             : sizeof(float) * (size_t)TILE * d.LDX;
+  const size_t att = att_bytes(d);
+  return own > att ? own : att;
+}
+
 template <typename T>
 inline size_t smem_bytes(const Dims& d) {
-  const size_t head = sizeof(double) * ((size_t)d.Pp + WARPS * 32);
   const size_t beam = sizeof(int) * 5 * (size_t)d.K;
+  const size_t vs = sizeof(double) * (size_t)d.A;
   if (kMma<T>)
-    return head + 2 * (size_t)d.R3 * (d.LDQ + SPAD) +
-           2 * (size_t)d.RH * (d.Hq + SPAD) + mma_stage_bytes(d) +
+    return vs + 2 * (size_t)d.R3 * (d.LDQ + SPAD) +
+           2 * (size_t)d.RH * (d.Hq + SPAD) + work_bytes<T>(d) +
            sizeof(float) * (size_t)d.NT * d.R3 +
            sizeof(int) * (2 * MAX_LT + (size_t)d.R3 + d.RH + 4) +
            sizeof(float) * ((size_t)d.R3 + d.RH) + beam;
-  return head +
-         sizeof(float) * ((size_t)TILE * d.LDX + TILE * 4 * UNIT_CHUNK) +
+  return vs + work_bytes<T>(d) + sizeof(float) * TILE * 4 * UNIT_CHUNK +
          beam;
 }
 
 template <typename T>
 __device__ inline Smem carve(void* base, const Dims& d) {
   Smem s = {};
-  s.alpha = (double*)base;
-  s.part = s.alpha + d.Pp;
-  char* next = (char*)(s.part + WARPS * 32);
+  s.vs = (double*)base;
+  char* next = (char*)(s.vs + d.A);
   if constexpr (kMma<T>) {
     s.w3 = (__nv_bfloat16*)next;
     s.wh = s.w3 + (size_t)d.R3 * (d.LDQ + SPAD);
     s.xb = s.wh + (size_t)d.RH * (d.Hq + SPAD);
-    s.pre = (float*)((char*)s.xb + mma_stage_bytes(d));
+    s.att = (char*)s.xb;
+    s.pre = (float*)((char*)s.xb + work_bytes<T>(d));
     s.hoff = (int*)(s.pre + (size_t)d.NT * d.R3);
     s.hkind = s.hoff + MAX_LT;
     s.m3map = s.hkind + MAX_LT;
@@ -377,7 +408,8 @@ __device__ inline Smem carve(void* base, const Dims& d) {
     next = (char*)(s.biash + d.RH);
   } else {
     s.xs = (float*)next;
-    s.pre = s.xs + TILE * d.LDX;
+    s.att = next;
+    s.pre = (float*)(next + work_bytes<T>(d));
     next = (char*)(s.pre + TILE * 4 * UNIT_CHUNK);
   }
   s.bpar = (int*)next;
@@ -596,108 +628,509 @@ __device__ void phase_head(const Params<T>& p, const Smem& s, const int* act,
     phase_head_f64(p, s, act, nact, hb, logits);
 }
 
-// ---- phase B: attention scores ------------------------------------------
+// ---- phases B and C: attention ------------------------------------------
+//
+// What bounds them: at a page's ~2,400 beams a step's scores and attended
+// sum are 2 x 2,400 x 196 x 512 float64 products, and the images' enc_proj
+// and enc (196 x 512 bf16 each, ~96 MB apiece a step at 480 images, more
+// than L2 holds) stream from device memory. What kept them at a few
+// percent of the float64 rate: a conversion of each bf16 value to float64
+// (cvt, a quarter of the float64 FMA rate; two a score product), short
+// dependent chains (a warp per (row, position) pair: 16 FMAs, then a
+// 5-level shuffle), and each beam reading its image's enc_proj and enc
+// again. Here:
+//
+// * A bfloat16 value becomes a float64 by its bits: its sign, exponent and
+//   mantissa moved into a float64's high word give the value times 2^-896
+//   exactly (bfloat16 subnormals become float64 subnormals). The other
+//   factor of each product carries 2^896 (v, and the softmax weights; both
+//   stay below 2^1024), so each product is the exact product and each sum
+//   the float64 sum, in another order. (An infinite or NaN input would turn
+//   finite; finite weights and features give none.)
+// * rnd(enc_proj + dp) and the relu are one bfloat16x2 FMA (x 1 + dp,
+//   rounded once, clamped at 0). That is the float32 sum rounded to
+//   bfloat16: the float32 sum of two bfloat16 values is exact, or so close
+//   to one of them that no rounding point lies between.
+// * Every thread holds several independent float64 sums, a reduction
+//   across lanes or warps runs once for many products, and phase C issues
+//   the loads of several positions before it uses them: with one block of
+//   16 warps an SM, the loads' latency bounds these phases more than the
+//   float64 rate does.
+// * Registers: phases A and D need nearly all of a thread's 128, and the
+//   bfloat16 kernels must spill nothing. Hence four positions (not more)
+//   a score task, no batched loads in phase B, four positions a batch in
+//   K2's phase C, and the softmax computed before a unit's other values
+//   exist (its float64 division may call a subroutine, and every value
+//   live across that call costs registers).
 
-// v . relu(enc_proj + dp) + b_v for every (active row, position), a warp
-// per pair over the whole grid.
+template <typename T> struct Att;
+
+// Float32 streams: plain conversions (not the fast path).
+template <> struct Att<float> {
+  static constexpr double UP = 1.0;  // the scale of v and the weights alpha
+  using Raw4 = float4;               // four enc_proj values as loaded
+  using Raw2 = float2;               // two enc values as loaded
+  using Dp = float4;
+  __device__ static Dp dp4(const float* dp) {
+    return *reinterpret_cast<const float4*>(dp);
+  }
+  __device__ static Raw4 ld4(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ static Raw2 ld2(const float* p) {
+    return __ldg(reinterpret_cast<const float2*>(p));
+  }
+  // relu(rnd(proj + dp)) of four elements, as float64.
+  __device__ static void relu4(const Raw4& v, const Dp& dp, double (&y)[4]) {
+    y[0] = fmaxf(__fadd_rn(v.x, dp.x), 0.0f);
+    y[1] = fmaxf(__fadd_rn(v.y, dp.y), 0.0f);
+    y[2] = fmaxf(__fadd_rn(v.z, dp.z), 0.0f);
+    y[3] = fmaxf(__fadd_rn(v.w, dp.w), 0.0f);
+  }
+  __device__ static void f64x2(const Raw2& v, double (&x)[2]) {
+    x[0] = v.x;
+    x[1] = v.y;
+  }
+};
+
+// The bfloat16 in the low or high half of w as a float64 times 2^-896.
+__device__ __forceinline__ double bf16lo_f64(uint32_t w) {
+  return __hiloint2double(
+      (int)((uint32_t)((int)(w << 16) >> 3) & 0x8fffe000u), 0);
+}
+__device__ __forceinline__ double bf16hi_f64(uint32_t w) {
+  return __hiloint2double((int)((uint32_t)((int)w >> 3) & 0x8fffe000u), 0);
+}
+// The same for a value with its sign bit clear, or -0 (made +0).
+__device__ __forceinline__ double bf16lo_f64_pos(uint32_t w) {
+  return __hiloint2double((int)((w << 13) & 0x0fffe000u), 0);
+}
+__device__ __forceinline__ double bf16hi_f64_pos(uint32_t w) {
+  return __hiloint2double((int)((w >> 3) & 0x0fffe000u), 0);
+}
+// Keeps the compiler from moving loads across it: the loads issued before
+// stay batched, and shared-memory loads after it are not hoisted above
+// (which would hold a whole unrolled loop's values in registers).
+__device__ __forceinline__ void order_point() {
+  asm volatile("" ::: "memory");
+}
+
+// Two float32 values rounded to bfloat16 and packed (lo in the low half).
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+// max(rnd(a + b), 0) of two bfloat16 pairs: a x 1 + b rounded once.
+__device__ __forceinline__ uint32_t add_relu_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("fma.rn.relu.bf16x2 %0, %1, %2, %3;"
+      : "=r"(d)
+      : "r"(a), "r"(0x3f803f80u), "r"(b));
+  return d;
+}
+
+template <> struct Att<__nv_bfloat16> {
+  static constexpr double UP = 0x1p896;
+  using Raw4 = uint2;
+  using Raw2 = uint32_t;
+  using Dp = uint2;  // dp's four values as bfloat16 (exact: dp is rounded)
+  __device__ static Dp dp4(const float* dp) {
+    const float4 v = *reinterpret_cast<const float4*>(dp);
+    return make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+  }
+  __device__ static Raw4 ld4(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ static Raw2 ld2(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+  __device__ static void relu4(const Raw4& v, const Dp& dp, double (&y)[4]) {
+    const uint32_t s0 = add_relu_bf16x2(v.x, dp.x);
+    const uint32_t s1 = add_relu_bf16x2(v.y, dp.y);
+    y[0] = bf16lo_f64_pos(s0);
+    y[1] = bf16hi_f64_pos(s0);
+    y[2] = bf16lo_f64_pos(s1);
+    y[3] = bf16hi_f64_pos(s1);
+  }
+  __device__ static void f64x2(const Raw2& v, double (&x)[2]) {
+    x[0] = bf16lo_f64(v);
+    x[1] = bf16hi_f64(v);
+  }
+};
+
+// v x UP into the block's copy (s.vs), once per launch.
 template <typename T>
-__device__ void phase_scores(const Params<T>& p, const int* act, int nact) {
+__device__ void load_v(const Params<T>& p, const Smem& s) {
+  for (int a = threadIdx.x; a < p.d.A; a += THREADS)
+    s.vs[a] = (double)ldf(p.v + a) * Att<T>::UP;
+}
+
+// Phase B's tasks (image, PQ positions, beam) over the whole grid: LA
+// lanes share a task, lane i of them taking the elements 4i .. 4i + 3,
+// 4i + 4LA .. of A, with a float64 sum per position; the lanes are joined
+// by an xor butterfly. Tasks go to the
+// grid's lane groups in order, so the beams of an image at the same
+// positions sit in neighbouring lanes and read the same enc_proj bytes in
+// one instruction.
+template <int LA, int PQ, typename T>
+__device__ void score_tasks(const Params<T>& p, int tid, int bid, int grid,
+                            const double* vs, const int* act, int nact) {
+  using A4 = Att<T>;
   const Dims& d = p.d;
-  const int lane = threadIdx.x % 32;
-  const int gw = blockIdx.x * WARPS + threadIdx.x / 32;
-  const int nw = gridDim.x * WARPS;
+  const int lane = tid % 32, sub = lane % LA;
+  const unsigned mask =
+      LA == 32 ? 0xffffffffu : ((1u << LA) - 1u) << (lane - sub);
+  const int per_img = (d.P + PQ - 1) / PQ * d.K;
+  const int ntask = nact / d.K * per_img;
+  const int nlg = grid * (THREADS / LA);
   const float bvv = ldf(p.bv);
-  for (int pr = gw; pr < nact * d.P; pr += nw) {
-    const int r = act[pr / d.P], pos = pr % d.P;
-    const T* pp = p.proj + ((size_t)(r / d.K) * d.P + pos) * d.A;
+#pragma unroll 1
+  for (int t = (bid * THREADS + tid) / LA; t < ntask; t += nlg) {
+    const int slot = t / per_img, rem = t - slot * per_img;
+    const int q = rem / d.K;
+    const int r = act[slot * d.K + rem - q * d.K];
+    const int pos0 = q * PQ;
+    const T* pp = p.proj + ((size_t)(r / d.K) * d.P + pos0) * d.A;
+    int off[PQ];  // position pos0 + j; past the last one, pos0 again
+#pragma unroll
+    for (int j = 0; j < PQ; ++j) off[j] = pos0 + j < d.P ? j * d.A : 0;
     const float* dp = p.dp + (size_t)src_row(p, r) * d.A;
-    double acc = 0.0;
-    for (int a = lane; a < d.A; a += 32)
-      acc = fma((double)fmaxf(rnd<T>(__fadd_rn(ldf(pp + a), dp[a])), 0.0f),
-                (double)ldf(p.v + a), acc);
-    acc = warp_sum(acc);
-    if (lane == 0)
-      p.sc[(size_t)r * d.Pp + pos] = rnd<T>(__fadd_rn(rnd64<T>(acc), bvv));
+    double acc[PQ];
+#pragma unroll
+    for (int j = 0; j < PQ; ++j) acc[j] = 0.0;
+#pragma unroll 1
+    for (int a = 4 * sub; a < d.A; a += 4 * LA) {
+      const typename A4::Dp dv = A4::dp4(dp + a);
+      typename A4::Raw4 pv[PQ];
+#pragma unroll
+      for (int j = 0; j < PQ; ++j) pv[j] = A4::ld4(pp + off[j] + a);
+      const double2 v01 = *reinterpret_cast<const double2*>(vs + a);
+      const double2 v23 = *reinterpret_cast<const double2*>(vs + a + 2);
+#pragma unroll
+      for (int j = 0; j < PQ; ++j) {
+        double y[4];
+        A4::relu4(pv[j], dv, y);
+        acc[j] = fma(y[0], v01.x, acc[j]);
+        acc[j] = fma(y[1], v01.y, acc[j]);
+        acc[j] = fma(y[2], v23.x, acc[j]);
+        acc[j] = fma(y[3], v23.y, acc[j]);
+      }
+    }
+#pragma unroll
+    for (int o = LA / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int j = 0; j < PQ; ++j) acc[j] += __shfl_xor_sync(mask, acc[j], o);
+    double mine = acc[0];
+#pragma unroll
+    for (int j = 1; j < PQ; ++j)
+      if (sub == j) mine = acc[j];
+    if (sub < PQ && pos0 + sub < d.P)  // lane j writes position pos0 + j
+      p.sc[(size_t)r * d.Pp + pos0 + sub] =
+          rnd<T>(__fadd_rn(rnd64<T>(mine), bvv));
   }
 }
 
-// ---- phase C: softmax and attended vector -----------------------------------
-
-// alpha = softmax of row r's scores, in float64, into s.alpha (the whole
-// block; every block computes the same values for the same row).
+// v . relu(enc_proj + dp) + b_v for every (active row, position): eight
+// lanes and four positions a task while the tasks fill at least half the
+// grid's lanes, else (few rows) a warp per pair, for shorter chains.
+// (Loads of several chunks at once would hold more registers than phases
+// A and D leave: the kernel would spill.)
 template <typename T>
-__device__ void row_softmax(const Params<T>& p, const Smem& s, int r) {
-  __shared__ double red[WARPS];
+__device__ void phase_scores(const Params<T>& p, const Smem& s,
+                             const int* act, int nact) {
+  const int tid = threadIdx.x, bid = blockIdx.x, grid = gridDim.x;
+  if (2LL * nact * ((p.d.P + 3) / 4) * 8 >= (long long)grid * THREADS)
+    score_tasks<8, 4>(p, tid, bid, grid, s.vs, act, nact);
+  else
+    score_tasks<32, 1>(p, tid, bid, grid, s.vs, act, nact);
+}
+
+// Phase C's tiling for ng groups on a grid of `grid` blocks. A block's
+// WARPS warps take 32 cw columns: cw column chunks of 32, each summed by
+// WARPS / cw warps over interleaved positions, and within a warp by two
+// lane slices (lanes 16s .. 16s + 15 take slice s, 2 columns a lane). With
+// cw = WARPS a unit is a whole group, its columns in passes of 32 WARPS;
+// else a unit is one tile of 32 cw columns of a group (ntile of them). The
+// cw that ends the phase soonest, a unit costing its passes and ATT_OV
+// (the softmax and the reduction), in 16ths of a full pass; ties to the
+// wider. The host computes the same (kernels/fused_decode.py:att_tiling).
+struct AttTiling {
+  int cw, ntile, units;
+  __host__ __device__ AttTiling(int ng, int E, int grid) {
+    const int nct = (E + 31) / 32;
+    cw = WARPS;
+    ntile = 1;
+    // 32-bit arithmetic: a 64-bit division is a subroutine call, whose
+    // register saves would spill.
+    int best = (ng + grid - 1) / grid *
+               (WARPS * ((nct + WARPS - 1) / WARPS) + ATT_OV);
+    for (int c = WARPS / 2; c >= 1; c /= 2) {
+      const int nt = (nct + c - 1) / c;
+      const int cost = (ng * nt + grid - 1) / grid * (c + ATT_OV);
+      if (cost < best) {
+        best = cost;
+        cw = c;
+        ntile = nt;
+      }
+    }
+    units = ng * ntile;
+  }
+  // A group's columns spread over several blocks.
+  __host__ __device__ bool split() const { return ntile > 1; }
+};
+
+// gate * tot rounded at flax's point into the attended vector (1 or 2
+// columns from col).
+template <typename T>
+__device__ __forceinline__ void awe_put(const Params<T>& p, int E, int r,
+                                        int col, float g, double tot) {
+  if constexpr (kMma<T>)
+    p.awe16[(size_t)r * E + col] =
+        __float2bfloat16_rn(rnd64<T>((double)g * tot));
+  else
+    p.awe[(size_t)r * E + col] = rnd64<T>((double)g * tot);
+}
+template <typename T>
+__device__ __forceinline__ void awe_store(const Params<T>& p, int E, int r,
+                                          int col, double tot) {
+  awe_put(p, E, r, col, p.gate[(size_t)src_row(p, r) * E + col], tot);
+}
+template <typename T>
+__device__ __forceinline__ void awe_store2(const Params<T>& p, int E, int r,
+                                           int col, const double (&tot)[2]) {
+  const size_t at = (size_t)r * E + col;
+  const float2 g = *reinterpret_cast<const float2*>(
+      p.gate + (size_t)src_row(p, r) * E + col);
+  const float o0 = rnd64<T>((double)g.x * tot[0]);
+  const float o1 = rnd64<T>((double)g.y * tot[1]);
+  if constexpr (kMma<T>)
+    *reinterpret_cast<uint32_t*>(p.awe16 + at) = pack_bf16x2(o0, o1);
+  else
+    *reinterpret_cast<float2*>(p.awe + at) = make_float2(o0, o1);
+}
+
+// The softmax of the nr rows rows[0 ..] into alpha (nr x Pp doubles, times
+// UP), in float64: WARPS / nr warps a row (the whole block), the row's
+// warps joined through shared memory, a warp's value a lane, by a
+// butterfly.
+template <typename T>
+__device__ void group_softmax(const Params<T>& p, int tid, const int* rows,
+                              int nr, double* alpha) {
+  __shared__ double red[2][WARPS];  // each warp's max, then sum
   const Dims& d = p.d;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int WPR = WARPS / nr;
+  const int warp = tid / 32, lane = tid % 32;
+  const int rr = warp / WPR;
+  const bool mine = rr < nr, joins = mine && lane < WPR;
+  const int i0 = (warp % WPR) * 32 + lane, w0 = rr * WPR + lane;
+  const float* sc = p.sc + (size_t)rows[mine ? rr : 0] * d.Pp;
+  double* al = alpha + (size_t)rr * d.Pp;
   double m = -INFINITY;
-  for (int i = threadIdx.x; i < d.P; i += THREADS) {
-    const double x = p.sc[(size_t)r * d.Pp + i];
-    s.alpha[i] = x;
-    m = fmax(m, x);
-  }
+  if (mine)
+#pragma unroll 4
+    for (int i = i0; i < d.P; i += 32 * WPR) {
+      const double x = sc[i];
+      al[i] = x;
+      m = fmax(m, x);
+    }
   m = warp_max(m);
-  if (lane == 0) red[warp] = m;
+  if (lane == 0) red[0][warp] = m;
   __syncthreads();
-  m = red[0];
-  for (int w = 1; w < WARPS; ++w) m = fmax(m, red[w]);
-  __syncthreads();
+  m = warp_max(joins ? red[0][w0] : -INFINITY);
   double sum = 0.0;
-  for (int i = threadIdx.x; i < d.P; i += THREADS) {
-    const double ex = exp(s.alpha[i] - m);
-    s.alpha[i] = ex;
-    sum += ex;
-  }
+  if (mine)
+    for (int i = i0; i < d.P; i += 32 * WPR) {
+      const double ex = exp(al[i] - m);
+      al[i] = ex;
+      sum += ex;
+    }
   sum = warp_sum(sum);
-  if (lane == 0) red[warp] = sum;
+  if (lane == 0) red[1][warp] = sum;
   __syncthreads();
-  sum = 0.0;
-  for (int w = 0; w < WARPS; ++w) sum += red[w];
-  for (int i = threadIdx.x; i < d.P; i += THREADS) s.alpha[i] /= sum;
+  sum = warp_sum(joins ? red[1][w0] : 0.0);
+  if (mine)
+    for (int i = i0; i < d.P; i += 32 * WPR) al[i] = al[i] / sum * Att<T>::UP;
   __syncthreads();
 }
 
-// awe = gate * sum_p alpha_p enc_p, over units of (active row, 32 encoder
-// columns); a block takes a contiguous range of units and recomputes the
-// softmax only when the row changes. Inside a unit, warp w sums the
-// positions w, w + 16, ... and the 16 partial sums are added in order.
-template <typename T>
-__device__ void phase_attend(const Params<T>& p, const Smem& s,
+// One unit of phase C (BEAM: of K2) after its softmax: the NR rows
+// rows[0 ..] of image img, columns [c0, c1) in passes of 32 cw
+// (AttTiling), UC positions loaded at once; partial sums of rb rows at a
+// time through shared memory where several warps share a column chunk.
+template <int NR, bool BEAM, typename T>
+__device__ void attend_unit(const Params<T>& p, int tid, double* alpha,
+                            const int* rows, int img, int c0, int c1, int cw,
+                            int rb) {
+  using A2 = Att<T>;
+  constexpr int UC = BEAM ? 4 : 8;  // K1's one row leaves room for more
+  const Dims& d = p.d;
+  const int warp = tid / 32, lane = tid % 32;
+  double* red = alpha + (size_t)NR * d.Pp;  // rb x ATT_RED bytes
+  const int cp = lane & 15, ls = lane >> 4;
+  const int cwl = __ffs(cw) - 1;  // cw is a power of two
+  const int cwi = warp & (cw - 1), ws = warp >> cwl, nws = WARPS >> cwl;
+  const int ns = 2 * nws, slice = 2 * ws + ls, tw = 32 * cw;
+  const T* enc = p.enc + (size_t)img * d.P * d.E;
+#pragma unroll 1
+  for (int t0 = c0; t0 < c1; t0 += tw) {
+    const int col = t0 + 32 * cwi + 2 * cp;
+    const bool live = col < c1;  // E is a multiple of 4: whole pairs
+    double acc[NR][2];
+#pragma unroll
+    for (int rr = 0; rr < NR; ++rr) acc[rr][0] = acc[rr][1] = 0.0;
+    // K1, split: thread tid writes column t0 + tid; its gate, loaded now.
+    float g1 = 0.0f;
+    if (!BEAM && nws > 1 && tid < tw && t0 + tid < c1)
+      g1 = p.gate[(size_t)src_row(p, rows[0]) * d.E + t0 + tid];
+    if (live) {
+      const T* ep = enc + col;
+#pragma unroll 1
+      for (int pos0 = slice; pos0 < d.P; pos0 += ns * UC) {
+        typename A2::Raw2 raw[UC];
+#pragma unroll
+        for (int u = 0; u < UC; ++u) {
+          const int pos = pos0 + ns * u;
+          if (pos < d.P) raw[u] = A2::ld2(ep + (size_t)pos * d.E);
+        }
+#pragma unroll
+        for (int u = 0; u < UC; ++u) {
+          const int pos = pos0 + ns * u;
+          order_point();
+          if (pos < d.P) {
+            double x[2];
+            A2::f64x2(raw[u], x);
+#pragma unroll
+            for (int rr = 0; rr < NR; ++rr) {
+              const double a = alpha[rr * d.Pp + pos];
+              acc[rr][0] = fma(a, x[0], acc[rr][0]);
+              acc[rr][1] = fma(a, x[1], acc[rr][1]);
+            }
+          }
+        }
+      }
+    }
+    // The warp's two lane slices; every lane gets the sums.
+#pragma unroll
+    for (int rr = 0; rr < NR; ++rr) {
+      acc[rr][0] += __shfl_xor_sync(0xffffffffu, acc[rr][0], 16);
+      acc[rr][1] += __shfl_xor_sync(0xffffffffu, acc[rr][1], 16);
+    }
+    if (nws == 1) {  // lane slice s writes the rows s, s + 2, ...
+      if (live)
+#pragma unroll
+        for (int rr = 0; rr < NR; ++rr)
+          if ((rr & 1) == ls) awe_store2(p, d.E, rows[rr], col, acc[rr]);
+      continue;
+    }
+    // The warps of a column chunk, added in warp order.
+#pragma unroll 1
+    for (int r0 = 0; r0 < NR; r0 += rb) {
+#pragma unroll
+      for (int rr = 0; rr < NR; ++rr)
+        if (rr >= r0 && rr < r0 + rb && ls == 0 && live) {
+          double* at =
+              red + ((size_t)(rr - r0) * nws + ws) * tw + 32 * cwi + 2 * cp;
+          at[0] = acc[rr][0];
+          at[1] = acc[rr][1];
+        }
+      __syncthreads();
+      const int nrr = min(rb, NR - r0);
+      for (int i = tid; i < nrr * tw; i += THREADS) {
+        const int rr = i >> (5 + cwl), c = i - rr * tw;
+        if (t0 + c >= c1) continue;
+        const double* q = red + (size_t)rr * nws * tw + c;
+        double tot = 0.0;
+        if constexpr (!BEAM) {  // four sums in flight (nws: 2, 4, 8, 16)
+          double q1 = 0.0, q2 = 0.0, q3 = 0.0;
+          for (int w = 0; w < nws; w += 4) {
+            tot += q[(size_t)w * tw];
+            q1 += q[(size_t)(w + 1) * tw];
+            if (w + 2 < nws) {
+              q2 += q[(size_t)(w + 2) * tw];
+              q3 += q[(size_t)(w + 3) * tw];
+            }
+          }
+          awe_put(p, d.E, rows[0], t0 + c, g1, (tot + q1) + (q2 + q3));
+        } else {
+          for (int w = 0; w < nws; ++w) tot += q[(size_t)w * tw];
+          awe_store(p, d.E, rows[r0 + rr], t0 + c, tot);
+        }
+      }
+      __syncthreads();
+    }
+  }
+  __syncthreads();  // the next unit rewrites alpha
+}
+
+// attend_unit<nr> for any nr in 1 .. NR.
+template <int NR = ATT_G, typename T>
+__device__ __forceinline__ void attend_rows(int nr, const Params<T>& p,
+                                            int tid, double* alpha,
+                                            const int* rows, int img, int c0,
+                                            int c1, int cw, int rb) {
+  if constexpr (NR > 1) {
+    if (nr < NR) {
+      attend_rows<NR - 1>(nr, p, tid, alpha, rows, img, c0, c1, cw, rb);
+      return;
+    }
+  }
+  attend_unit<NR, true>(p, tid, alpha, rows, img, c0, c1, cw, rb);
+}
+
+// awe = gate * sum_p alpha_p enc_p for the active rows, in units of
+// AttTiling over groups of up to att_rows(d) rows of one image (K2, BEAM:
+// an image's beams; K1: a row, and only that unit's code in the kernel).
+// Returns whether a group's columns were split over blocks (the same in
+// every block).
+template <bool BEAM, typename T>
+__device__ bool phase_attend(const Params<T>& p, const Smem& s,
                              const int* act, int nact) {
   const Dims& d = p.d;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nc = (d.E + 31) / 32;
-  const long long nu = (long long)nact * nc;
-  const int u0 = (int)(nu * blockIdx.x / gridDim.x);
-  const int u1 = (int)(nu * (blockIdx.x + 1) / gridDim.x);
-  int have = -1;
-  for (int u = u0; u < u1; ++u) {
-    const int r = act[u / nc];
-    if (r != have) {
-      row_softmax(p, s, r);
-      have = r;
-    }
-    const int e = (u % nc) * 32 + lane;
-    double acc = 0.0;
-    if (e < d.E) {
-      const T* ep = p.enc + (size_t)(r / d.K) * d.P * d.E + e;
-      for (int pos = warp; pos < d.P; pos += WARPS)
-        acc = fma(s.alpha[pos], (double)ldf(ep + (size_t)pos * d.E), acc);
-    }
-    s.part[warp * 32 + lane] = acc;
-    __syncthreads();
-    if (warp == 0 && e < d.E) {
-      double tot = 0.0;
-      for (int w = 0; w < WARPS; ++w) tot += s.part[w * 32 + lane];
-      const float g = p.gate[(size_t)src_row(p, r) * d.E + e];
-      if constexpr (kMma<T>)
-        p.awe16[(size_t)r * d.E + e] =
-            __float2bfloat16_rn(rnd64<T>((double)g * tot));
-      else
-        p.awe[(size_t)r * d.E + e] = rnd64<T>((double)g * tot);
-    }
-    __syncthreads();
+  const int tid = threadIdx.x, grid = gridDim.x;
+  double* alpha = reinterpret_cast<double*>(s.att);
+  const int K = BEAM ? d.K : 1;  // K1: a group is a row
+  const int g = BEAM ? att_rows(d) : 1, cpi = (K + g - 1) / g;
+  const AttTiling tl(nact / K * cpi, d.E, grid);
+  const int room = (int)((work_bytes<T>(d) -
+                          sizeof(double) * (size_t)g * d.Pp) / ATT_RED);
+#pragma unroll 1
+  for (int u = blockIdx.x; u < tl.units; u += grid) {
+    const int grp = u / tl.ntile;
+    const int slot = grp / cpi, chunk = grp - slot * cpi;
+    const int* rows = act + slot * K + chunk * g;
+    const int nr = min(g, K - chunk * g);
+    group_softmax(p, tid, rows, nr, alpha);  // first: little else is live
+    const int tile = u - grp * tl.ntile;
+    const int img = rows[0] / K;
+    const int c0 = tile * 32 * tl.cw;
+    const int c1 = tl.cw == WARPS ? d.E : min(d.E, c0 + 32 * tl.cw);
+    const int rb = min(nr, room);
+    if constexpr (BEAM)
+      attend_rows(nr, p, tid, alpha, rows, img, c0, c1, tl.cw, rb);
+    else
+      attend_unit<1, false>(p, tid, alpha, rows, img, c0, c1, tl.cw, rb);
   }
+  return tl.split();
+}
+
+// Phase C's record: block 0 counts the split steps and the steps in
+// shared memory and writes them out at the end of the launch (a global
+// read-modify-write at each step would hold block 0 at the barrier).
+__device__ __forceinline__ int* att_count() {
+  __shared__ int n[2];
+  return n;
+}
+__device__ __forceinline__ void att_note(bool split) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    att_count()[0] += split;
+    att_count()[1] += 1;
+  }
+}
+template <typename T>
+__device__ __forceinline__ void att_flush(const Params<T>& p) {
+  if (p.astat && blockIdx.x == 0 && threadIdx.x < 2)
+    p.astat[threadIdx.x] = att_count()[threadIdx.x];
 }
 
 // ---- phase D: the LSTM ----------------------------------------------------
@@ -1477,10 +1910,12 @@ __device__ void phase_lstm_mma(const Params<T>& p, const Smem& s,
 
 // ---- set-up and launch ------------------------------------------------------
 
-// Row r's initial h (both buffers' padding zeroed) and c, from image r / K.
+// Row r's initial h (both buffers' padding zeroed) and c, from image r / K;
+// phase C's record zeroed.
 template <typename T>
 __device__ void init_state(const Params<T>& p) {
   const Dims& d = p.d;
+  if (blockIdx.x == 0 && threadIdx.x < 2) att_count()[threadIdx.x] = 0;
   const size_t n = (size_t)d.R * d.Hp;
   for (size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x; i < n;
        i += (size_t)gridDim.x * THREADS) {

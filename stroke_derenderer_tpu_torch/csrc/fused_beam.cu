@@ -157,6 +157,7 @@ __global__ void __launch_bounds__(THREADS, 1) beam_decode_kernel(Params<T> p) {
   stamp(p, 0);
   init_state(p);
   if constexpr (kMma<T>) load_slices(p, s);
+  load_v(p, s);
   for (size_t r = (size_t)blockIdx.x * THREADS + threadIdx.x; r < (size_t)d.R;
        r += (size_t)gridDim.x * THREADS) {
     p.tok[r] = BOS_TOK;
@@ -179,10 +180,10 @@ __global__ void __launch_bounds__(THREADS, 1) beam_decode_kernel(Params<T> p) {
   int hb = 0;
   for (int t = 0;; ++t) {
     const int st = 3 + t * 5;
-    phase_scores(p, act, nact);
+    phase_scores(p, s, act, nact);
     grid.sync();
     stamp(p, st);
-    phase_attend(p, s, act, nact);
+    att_note(phase_attend<true>(p, s, act, nact));
     grid.sync();
     stamp(p, st + 1);
     phase_lstm(p, s, act, nact, p.tok, hb);
@@ -199,6 +200,7 @@ __global__ void __launch_bounds__(THREADS, 1) beam_decode_kernel(Params<T> p) {
     if (nact == 0 || t + 1 == d.max_length) break;  // the same in every block
     hb ^= 1;
   }
+  att_flush(p);
 
   // Trace every beam's tokens back through the parents; later positions
   // keep the PAD the caller filled in.

@@ -47,6 +47,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   stamp(p, 0);
   init_state(p);
   if constexpr (kMma<T>) load_slices(p, s);
+  load_v(p, s);
   for (int i = threadIdx.x; i < d.R; i += THREADS) tok[i] = BOS_TOK;
   int nact = all_rows(act, d.R);
   grid.sync();
@@ -58,10 +59,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   int hb = 0;
   for (int t = 0;; ++t) {
     const int st = 3 + t * 4;
-    phase_scores(p, act, nact);
+    phase_scores(p, s, act, nact);
     grid.sync();
     stamp(p, st);
-    phase_attend(p, s, act, nact);
+    att_note(phase_attend<false>(p, s, act, nact));
     grid.sync();
     stamp(p, st + 1);
     phase_lstm(p, s, act, nact, tok, hb);
@@ -105,6 +106,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (nact == 0 || t + 1 == d.max_length) break;  // the same in every block
     hb ^= 1;
   }
+  att_flush(p);
 }
 
 }  // namespace

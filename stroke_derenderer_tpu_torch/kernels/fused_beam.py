@@ -154,10 +154,11 @@ def _check_beam(enc, enc_proj, h0, c0, w: dict, k: int) -> None:
 
 
 def beam_counts(lens: torch.Tensor, k: int, head: int, hdim: int,
-                fixstat: torch.Tensor | None = None) -> dict:
+                fixstat: torch.Tensor | None = None,
+                astat: torch.Tensor | None = None) -> dict:
     """``fused_decode.decode_counts`` of one search from its beams' lengths
     (B, k), each image counted until its longest beam, on the host."""
-    return decode_counts(lens.cpu().amax(1), k, head, hdim, fixstat)
+    return decode_counts(lens.cpu().amax(1), k, head, hdim, fixstat, astat)
 
 
 def fused_beam_decode_packed(enc, enc_proj, h0, c0, w: dict, max_length: int,
@@ -193,7 +194,7 @@ def fused_beam_decode_packed(enc, enc_proj, h0, c0, w: dict, max_length: int,
     engine_launches[ENGINES[enc.dtype]] += 1
     if recording():
         COUNTERS.defer(beam_counts, lens, k, head, hdim,
-                       launched.get("fixstat"))
+                       launched.get("fixstat"), launched["astat"])
     return preds, score, lens
 
 

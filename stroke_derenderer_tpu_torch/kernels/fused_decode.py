@@ -17,8 +17,9 @@ This module also holds the host side of that engine, for K1 and K2 alike:
 :func:`pack_step_weights` (the column-major weight layout, made once per
 model), :func:`step_plan` (which columns each block owns),
 :func:`mma_slices` and :func:`mma_plan` (the tensor-core path's resident
-slices and shared-memory plan) and :func:`launch_step_kernel` (scratch,
-grid and launch).
+slices and shared-memory plan), :func:`att_tiling` (how the attention
+phases tile a step, as the kernel works it out from the step's live rows)
+and :func:`launch_step_kernel` (scratch, grid and launch).
 
 Beside the kernel is its plain version, :func:`fused_greedy_decode_plain`,
 which steps the same loop in Python with PyTorch ops. The wrapper
@@ -67,7 +68,8 @@ STEP_POINTERS = (
     "tok", "parent", "score", "fin", "len", "done", "steps",
     "bp_parent", "bp_write",
     "preds", "score_out", "lens_out", "stamps",
-    "mh", "m3map", "hmap", "hkind", "h16", "awe16", "fix", "fixstat")
+    "mh", "m3map", "hmap", "hkind", "h16", "awe16", "fix", "fixstat",
+    "astat")
 STEP_DIMS = ("B", "P", "E", "A", "H", "D", "V", "K", "max_length",
              "NT", "KC", "R3", "RH")
 # Pointers only one path reads (null for the other).
@@ -87,6 +89,12 @@ MMA_MAX_LT = 16    # MAX_LT: head m-tiles a block may own
 # tensor-core path: two lists of FIXS = 64 elements to recompute).
 SMEM_PER_BLOCK = 232448
 SMEM_STATIC_RESERVE = 4096
+# Phases B and C (csrc/decode_step.cuh): rows of one image in a phase-C
+# group at most (ATT_G), bytes of one row's cross-warp partial sums
+# (ATT_RED) and a phase-C unit's fixed cost in 16ths of a pass (ATT_OV).
+ATT_G = 8
+ATT_RED = 4096
+ATT_OV = 2
 # (rows staged at a time, columns staged at a time), most preferred first:
 # two buffers of rows x (columns + MMA_SPAD) bf16.
 MMA_STAGING = ((128, 128), (128, 64), (64, 128), (64, 64), (64, 32),
@@ -232,18 +240,51 @@ def mma_slices(n_blocks: int, dims: dict) -> dict:
             "RH": rh}
 
 
+def att_bytes(dims: dict) -> int:
+    """Shared memory that phase C works in (``att_bytes`` in
+    csrc/decode_step.cuh): the softmax weights of a group's rows
+    (min(K, ATT_G) x P rounded up to 4, doubles) and one row of cross-warp
+    partial sums at least."""
+    pp = (dims["P"] + 3) // 4 * 4
+    return 8 * min(dims["K"], ATT_G) * pp + ATT_RED
+
+
+def att_tiling(ngroups: int, e: int, grid: int) -> dict:
+    """Phase C's tiling of one step (``AttTiling`` in csrc/decode_step.cuh,
+    which computes it on the card from the step's live rows): ``ngroups``
+    groups of at most ATT_G rows of one image (an image's K2 beams; a K1
+    row), E columns, ``grid`` blocks. A block's 16 warps take 32 cw columns
+    (cw column chunks, 16 / cw warps of them per chunk over interleaved
+    positions, two lane slices a warp, two columns a lane); cw = 16: a
+    unit is a whole group, its columns in passes of 512; else a unit is
+    one of the group's ``ntile`` tiles of 32 cw columns. The cw whose units end soonest, a unit costing its passes
+    and ATT_OV in 16ths of a pass (ties to the wider); ``split``: a
+    group's columns spread over several units."""
+    nct = -(-e // 32)
+    cw, ntile = MMA_WARPS, 1
+    best = -(-ngroups // grid) * (MMA_WARPS * -(-nct // MMA_WARPS) + ATT_OV)
+    c = MMA_WARPS // 2
+    while c >= 1:
+        nt = -(-nct // c)
+        cost = -(-(ngroups * nt) // grid) * (c + ATT_OV)
+        if cost < best:
+            best, cw, ntile = cost, c, nt
+        c //= 2
+    return {"cw": cw, "ntile": ntile, "units": ngroups * ntile,
+            "split": ntile > 1}
+
+
 def mma_smem_bytes(dims: dict, r3: int, rh: int, nt: int, kc: int) -> int:
     """Dynamic shared memory of one tensor-core block (the layout of
-    ``carve`` in csrc/decode_step.cuh): phase C's doubles, the resident
-    [W_x | W_h] and head slices (rows padded by MMA_SPAD), the staging
-    region (two chunks of nt rows x kc columns, which after a tile's last
-    chunk hold its split-k partial sums), the gate pre-activations, the
-    block's maps, head m-tiles, plan entries and biases, and K2's
-    picks."""
+    ``carve`` in csrc/decode_step.cuh): phase B's v (A doubles), the
+    resident [W_x | W_h] and head slices (rows padded by MMA_SPAD), the
+    staging region (two chunks of nt rows x kc columns, which after a
+    tile's last chunk hold its split-k partial sums; phase C works there
+    too, :func:`att_bytes`), the gate pre-activations, the block's maps,
+    head m-tiles, plan entries and biases, and K2's picks."""
     xq, hq = _round16(dims["D"] + dims["E"]), _round16(dims["H"])
-    pp = (dims["P"] + 3) // 4 * 4
-    stage = 2 * 2 * nt * (kc + MMA_SPAD)
-    return (8 * (pp + MMA_WARPS * 32) + 2 * r3 * (xq + hq + MMA_SPAD)
+    stage = max(2 * 2 * nt * (kc + MMA_SPAD), att_bytes(dims))
+    return (8 * dims["A"] + 2 * r3 * (xq + hq + MMA_SPAD)
             + 2 * rh * (hq + MMA_SPAD) + stage + 4 * nt * r3
             + 4 * (2 * MMA_MAX_LT + r3 + rh + 4) + 4 * (r3 + rh)
             + 4 * 5 * dims["K"])
@@ -364,8 +405,9 @@ def launch_step_kernel(name: str, enc, enc_proj, h0, c0, packed: dict,
     tensor-core sums among them as a share of their bound, a float32's bits;
     a pointer of the other path is null) and raises on a non-zero CUDA
     error code. Returns the launch's tensors by pointer name, its scratch
-    included (such as ``fixstat`` or K2's ``steps``), for a caller that
-    reads one once the launch has run."""
+    included (such as ``fixstat``, K2's ``steps``, or ``astat``: the steps
+    whose attended sum split a group's columns over blocks, and the steps
+    run), for a caller that reads one once the launch has run."""
     b, p, e = enc.shape
     hdim = h0.shape[-1]
     v, d = packed["emb"].shape
@@ -383,7 +425,8 @@ def launch_step_kernel(name: str, enc, enc_proj, h0, c0, packed: dict,
                "gate": torch.empty((rows, e), **f32),
                "sc": torch.empty((rows, (p + 3) // 4 * 4), **f32),
                "logits": torch.empty((rows, v), **f32),
-               "rows": torch.empty((grid, 2 * rows), **i32)}
+               "rows": torch.empty((grid, 2 * rows), **i32),
+               "astat": torch.empty(2, **i32)}
     if ENGINES[enc.dtype] == "mma":
         bf16 = dict(dtype=torch.bfloat16, device=dev)
         scratch |= {"h16": torch.empty((2, rows, hp), **bf16),
@@ -431,16 +474,18 @@ def greedy_steps(preds: torch.Tensor, max_length: int) -> torch.Tensor:
 
 
 def greedy_counts(preds: torch.Tensor, max_length: int, head: int,
-                  hdim: int, fixstat: torch.Tensor | None = None) -> dict:
+                  hdim: int, fixstat: torch.Tensor | None = None,
+                  astat: torch.Tensor | None = None) -> dict:
     """:func:`decode_counts` of one greedy decode from its tokens, counted
     on the host: a kernel launched for the count, one the untraced path
     never loads, would block the host while K1 runs."""
     return decode_counts(greedy_steps(preds.cpu(), max_length), 1, head,
-                         hdim, fixstat)
+                         hdim, fixstat, astat)
 
 
 def decode_counts(steps: torch.Tensor, k: int, head: int, hdim: int,
-                  fixstat: torch.Tensor | None = None) -> dict:
+                  fixstat: torch.Tensor | None = None,
+                  astat: torch.Tensor | None = None) -> dict:
     """The counters of one decode, from ``steps``, the steps each row (K1,
     k = 1) or each image's k beams (K2) ran:
 
@@ -453,7 +498,11 @@ def decode_counts(steps: torch.Tensor, k: int, head: int, hdim: int,
       (csrc/decode_step.cuh): the ``head`` = A + E dp and gate columns of
       every row in the prologue, then at every row-step the 4 x ``hdim``
       LSTM gates and the ``head`` columns again (the logits are not
-      rounded there)."""
+      rounded there);
+    - from a launch's ``astat`` (2 int32, given): ``decode_attend_steps``,
+      the steps the launch ran, and ``decode_attend_split_steps``, those
+      whose attended sum split a group's columns over blocks
+      (:func:`att_tiling`)."""
     steps = steps.long().cpu()
     rows = steps.shape[0] * k
     need = k * int(steps.sum())
@@ -462,6 +511,10 @@ def decode_counts(steps: torch.Tensor, k: int, head: int, hdim: int,
     if fixstat is not None:
         out["decode_fixed_elements"] = int(fixstat.cpu()[:, 0].sum())
         out["decode_fix_checked"] = rows * head + need * (4 * hdim + head)
+    if astat is not None:
+        split, ran = (int(x) for x in astat.cpu())
+        out["decode_attend_split_steps"] = split
+        out["decode_attend_steps"] = ran
     return out
 
 
@@ -527,7 +580,7 @@ def fused_greedy_decode_packed(enc, enc_proj, h0, c0, w: dict,
     engine_launches[ENGINES[enc.dtype]] += 1
     if recording():
         COUNTERS.defer(greedy_counts, preds, max_length, head, hdim,
-                       launched.get("fixstat"))
+                       launched.get("fixstat"), launched["astat"])
     return preds
 
 
