@@ -1,4 +1,5 @@
-"""Operations and bytes of the pipeline's work, worked out from shapes.
+"""Operations and bytes of the pipeline's work, worked out from shapes
+(the glyph encoder's in its family, ``encoders/<family>.py``).
 
 Nothing here reads the program's own counters. Floating-point operations
 are counted as ``torch.utils.flop_counter.FlopCounterMode`` counts them,
@@ -15,16 +16,13 @@ steps.
 
 from __future__ import annotations
 
+import encoders
+
 # The chip's published peaks (NVIDIA H100 SXM data sheet, dense, at the
 # full 700 W power limit): operations per second by stream type and the
 # HBM3 bandwidth.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
-
-ARCHS = {  # arch -> (block kind, blocks per stage, stem width, expansion)
-    "resnet18": ("basic", (2, 2, 2, 2), 64, 1),
-    "resnet50": ("bottleneck", (3, 4, 6, 3), 64, 4),
-}
 
 
 def conv(n, cin, cout, k, h_out, w_out) -> int:
@@ -51,36 +49,6 @@ def unet_flops(features, bottleneck: int, channels: int, h: int, w: int) -> int:
         total += conv(1, 2 * f, f, 3, hh, ww) + conv(1, f, f, 3, hh, ww)
         cin = f
     return total + conv(1, features[0], 1, 1, h, w)
-
-
-def resnet_flops(arch: str, size: int) -> int:
-    """One (size, size, 3) crop through the ResNet encoder."""
-    kind, stages, stem, mult = ARCHS[arch]
-    hw = size // 2
-    total = conv(1, 3, stem, 7, hw, hw)
-    hw = (hw + 1) // 2          # 3x3 / 2 max-pool, pad 1
-    cin = stem
-    for i, blocks in enumerate(stages):
-        f = stem << i
-        for b in range(blocks):
-            stride = 2 if b == 0 and i > 0 else 1
-            out_hw = hw // stride
-            if kind == "basic":
-                total += conv(1, cin, f, 3, out_hw, out_hw) + conv(1, f, f, 3, out_hw, out_hw)
-                cout = f
-            else:
-                total += (conv(1, cin, f, 1, hw, hw) + conv(1, f, f, 3, out_hw, out_hw)
-                          + conv(1, f, f * mult, 1, out_hw, out_hw))
-                cout = f * mult
-            if cin != cout or stride != 1:
-                total += conv(1, cin, cout, 1, out_hw, out_hw)
-            cin, hw = cout, out_hw
-    return total
-
-
-def encoder_width(arch: str) -> int:
-    _, _, stem, mult = ARCHS[arch]
-    return stem * 8 * mult
 
 
 def projection_flops(positions: int, cin: int, cout: int) -> int:
@@ -134,8 +102,9 @@ def decode_bound_s(calls, strokes: dict, k: int) -> float:
     """The least time the card could take for the decode launches of the
     traced ``calls`` (one launch a call; ``k`` = 1 for K1, the beam width
     for K2), at configuration ``strokes``'s widths."""
-    e = strokes["projection_dim"] or encoder_width(strokes["encoder_arch"])
-    return sum(decode_cost(c["rows"], c["steps"], k, strokes["encode_image_size"] ** 2, e,
+    fam = encoders.family(strokes["encoder_arch"])
+    e = strokes["projection_dim"] or fam.width(strokes)
+    return sum(decode_cost(c["rows"], c["steps"], k, fam.positions(strokes), e,
                            strokes["attention_dim"], strokes["decoder_dim"],
                            strokes["embed_dim"], 3 + 2 * strokes["image_size"],
                            strokes["max_length"], strokes["compute_dtype"])["bound_s"]

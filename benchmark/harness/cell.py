@@ -46,14 +46,19 @@ def load(name: str) -> Cell:
         per_layer=[m for m in spec["per_layer"] if _applies(m, name)])
 
 
-def metric_reader(name: str):
-    """``metrics/<name>.py``'s ``read``."""
-    path = BENCH / "metrics" / f"{name}.py"
+def load_file(path: Path, prefix: str):
+    """The module of the file ``path``, run under the name ``prefix`` and
+    its stem (dots made underscores)."""
     spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + name.replace(".", "_"), path)
+        prefix + path.stem.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str):
+    """``metrics/<name>.py``'s ``read``."""
+    return load_file(BENCH / "metrics" / f"{name}.py", "bench_metric_").read
 
 
 def forbidden_modules(modules) -> list[str]:

@@ -55,6 +55,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import encoders
 from reference import geometry, models
 
 ROW_GAP_OVER = (0.1, 0.2, 0.3, 0.5)
@@ -77,7 +78,8 @@ def _mask(tw, img, b: dict, device, low=None) -> np.ndarray:
 
 def _features(tw, crops: torch.Tensor, s: dict, low=None) -> torch.Tensor:
     with models.low_precision(low):
-        f = models.resnet(tw["encoder"], models.normalize_crops(crops, s["mean"], s["std"]))
+        f = encoders.family(s["encoder_arch"]).forward(
+            tw["encoder"], models.normalize_crops(crops, s["mean"], s["std"]))
         return models.dense(f, tw["projection"]) if tw["projection"] is not None else f
 
 

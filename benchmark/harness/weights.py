@@ -20,7 +20,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from counts import ARCHS, encoder_width
+import encoders
 from harness.cell import ROOT
 from reference import msgpack
 from reference.models import merged
@@ -61,35 +61,6 @@ def unet_shapes(features, bottleneck: int, channels: int, norm: str) -> dict:
         p[f"ConvBlock_{n + 1 + j}"] = block(2 * f, f)
         cin = f
     p["head"] = _conv(1, features[0], 1)
-    return p
-
-
-def resnet_shapes(arch: str, norm: str) -> dict:
-    kind, stages, stem, mult = ARCHS[arch]
-    name, leaves = _norm(norm, stem)
-    p = {"stem": _conv(7, 3, stem, bias=False), f"{name}_0": leaves}
-    cin, idx = stem, 0
-    block = "BasicBlock" if kind == "basic" else "BottleneckBlock"
-    for i, blocks in enumerate(stages):
-        f = stem << i
-        for b in range(blocks):
-            stride = 2 if b == 0 and i > 0 else 1
-            if kind == "basic":
-                convs = [(3, cin, f), (3, f, f)]
-            else:
-                convs = [(1, cin, f), (3, f, f), (1, f, f * mult)]
-            q = {}
-            for j, (k, ci, co) in enumerate(convs):
-                q[f"Conv_{j}"] = _conv(k, ci, co, bias=False)
-                nm, lv = _norm(norm, co)
-                q[f"{nm}_{j}"] = lv
-            cout = convs[-1][2]
-            if cin != cout or stride != 1:
-                q["proj"] = _conv(1, cin, cout, bias=False)
-                nm, lv = _norm(norm, cout)
-                q[f"{nm}_{len(convs)}"] = lv
-            p[f"{block}_{idx}"] = q
-            cin, idx = cout, idx + 1
     return p
 
 
@@ -184,11 +155,12 @@ def random_model_dir(cfg: dict, out: Path, device) -> dict:
     {"binarizer", "encoder", "projection" or None, "decoder"}."""
     b, s = cfg["binarizer"], cfg["strokes"]
     gen = torch.Generator(device=device).manual_seed(int(cfg["weights_seed"]))
-    width = encoder_width(s["encoder_arch"])
+    encoder = encoders.family(s["encoder_arch"])
+    width = encoder.width(s)
     enc_dim = s["projection_dim"] or width
     shapes = {
         "binarizer": unet_shapes(b["features"], b["bottleneck"], b["channels"], b["norm"]),
-        "encoder": resnet_shapes(s["encoder_arch"], s["encoder_norm"]),
+        "encoder": encoder.shapes(s),
         "projection": ({"kernel": (width, s["projection_dim"]), "bias": (s["projection_dim"],)}
                        if s["projection_dim"] else None),
         "decoder": decoder_shapes(3 + 2 * s["image_size"], s["embed_dim"],

@@ -4,16 +4,18 @@ the projection over their glyph crops, the decoder for the steps each row
 or beam ran) over the traced window x 989 TFLOP/s."""
 
 import counts
+import encoders
 
 
 def read(run):
     b, s = run.config["binarizer"], run.config["strokes"]
     k = run.traffic["beam_size"] if run.traffic["decode"] == "beam" else 1
-    p = s["encode_image_size"] ** 2
-    width = counts.encoder_width(s["encoder_arch"])
+    encoder = encoders.family(s["encoder_arch"])
+    p = encoder.positions(s)
+    width = encoder.width(s)
     e = s["projection_dim"] or width
     unet = counts.unet_flops(b["features"], b["bottleneck"], b["channels"], b["height"], b["width"])
-    row = (counts.resnet_flops(s["encoder_arch"], s["image_size"])
+    row = (encoder.flops(s)
            + (counts.projection_flops(p, width, e) if s["projection_dim"] else 0)
            + counts.decoder_row_flops(p, e, s["attention_dim"], s["decoder_dim"]))
     step = counts.decoder_step_flops(p, e, s["attention_dim"], s["decoder_dim"], s["embed_dim"],

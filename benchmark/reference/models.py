@@ -1,5 +1,7 @@
-"""The three networks as plain PyTorch in float32, straight from their flax
-parameter trees (kernels HWIO, dense kernels (in, out)).
+"""The binarizer, the projection head and the decoder as plain PyTorch in
+float32, straight from their flax parameter trees (kernels HWIO, dense
+kernels (in, out)), and the layers the glyph encoders of ``encoders/``
+are built from.
 
 - The attention-UNet binarizer: per level two (3x3 conv, norm, ReLU),
   2x2 max-pool; a bottleneck block; per level up a 2x2 stride-2 transposed
@@ -7,10 +9,6 @@ parameter trees (kernels HWIO, dense kernels (in, out)).
   Wx skip)))), the block over [gated skip, up]; a 1x1 head and a sigmoid.
   GroupNorm in groups of min(16, C), eps 1e-6; BatchNorm on its running
   statistics, eps 1e-5.
-- The ResNet encoder: 7x7/2 stem, norm, ReLU, 3x3/2 max-pool, basic or
-  bottleneck blocks (the stride on the first block of each later stage,
-  a 1x1 projection where the shape changes), GroupNorm in groups of
-  min(8, C); the 7x7 map repeated to 14x14 and flattened row-major.
 - The projection head, where there is one: a dense layer per position.
 - The attentive LSTM decoder: additive attention over the positions, a
   sigmoid gate on the attended vector, an LSTM cell (gates i, f, g, o, the
@@ -132,42 +130,6 @@ def unet(p: dict, tiles: torch.Tensor) -> torch.Tensor:
         x = _unet_block(torch.cat([skip * torch.sigmoid(_conv(a, g["psi"])), x], 1),
                         p[f"ConvBlock_{levels + 1 + j}"])
     return torch.sigmoid(_conv(x, p["head"]))[:, 0]
-
-
-def resnet(p: dict, images: torch.Tensor) -> torch.Tensor:
-    """(N, S, S, 3) normalized crops -> (N, 196, C) float32 features."""
-    x = images.permute(0, 3, 1, 2)
-    x = F.relu(_norm(_conv(x, p["stem"], 2, 3), p, 0, 8))
-    x = F.max_pool2d(x, 3, 2, 1)
-    bottleneck = "BottleneckBlock_0" in p
-    name = "BottleneckBlock" if bottleneck else "BasicBlock"
-    i = 0
-    while f"{name}_{i}" in p:
-        q = p[f"{name}_{i}"]
-        n = 3 if bottleneck else 2
-        stride = _stride(p, name, i)
-        if bottleneck:
-            y = F.relu(_norm(_conv(x, q["Conv_0"]), q, 0, 8))
-            y = F.relu(_norm(_conv(y, q["Conv_1"], stride, 1), q, 1, 8))
-            y = _norm(_conv(y, q["Conv_2"]), q, 2, 8)
-        else:
-            y = F.relu(_norm(_conv(x, q["Conv_0"], stride, 1), q, 0, 8))
-            y = _norm(_conv(y, q["Conv_1"], 1, 1), q, 1, 8)
-        res = x if "proj" not in q else _norm(_conv(x, q["proj"], stride), q, n, 8)
-        x = F.relu(y + res)
-        i += 1
-    x = x.repeat_interleave(2, 2).repeat_interleave(2, 3)
-    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1, x.shape[1])
-
-
-def _stride(p: dict, name: str, i: int) -> int:
-    """2 on the first block of every stage after the first: the blocks
-    whose first 3x3 conv widens the channels (their width doubles)."""
-    if i == 0:
-        return 1
-    conv = "Conv_1" if name == "BottleneckBlock" else "Conv_0"
-    prev = p[f"{name}_{i - 1}"][conv]["kernel"].shape[-1]
-    return 2 if p[f"{name}_{i}"][conv]["kernel"].shape[-1] > prev else 1
 
 
 def normalize_crops(crops: torch.Tensor, mean, std) -> torch.Tensor:

@@ -4,6 +4,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 import counts
+import encoders
 from harness import weights
 from reference import models
 
@@ -27,10 +28,12 @@ def test_unet_flops():
 
 def test_resnet_flops():
     for arch in ("resnet18", "resnet50"):
-        p = _tree(weights.resnet_shapes(arch, "batch"))
+        fam = encoders.family(arch)
+        s = {"encoder_arch": arch, "encoder_norm": "batch", "image_size": 64}
+        p = _tree(fam.shapes(s))
         # The counted call repeats the 7x7 map to 14x14 after the blocks;
         # that copy is no operation.
-        assert _counted(models.resnet, p, torch.zeros(1, 64, 64, 3)) == counts.resnet_flops(arch, 64)
+        assert _counted(fam.forward, p, torch.zeros(1, 64, 64, 3)) == fam.flops(s)
 
 
 def test_decoder_flops():

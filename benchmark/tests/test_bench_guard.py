@@ -20,17 +20,23 @@ def test_forbidden_names_match_whole_top_level_names():
 
 
 def test_reference_loads_nothing_of_the_program_or_jax():
-    code = ("import sys; sys.path[:0] = [sys.argv[1]]; "
-            "import reference.geometry, reference.models, reference.msgpack, counts; "
-            "print([m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'stroke_derenderer_tpu', 'stroke_derenderer_tpu_torch')])")
+    """The reference and every encoder family of ``encoders/``, each family
+    file run as ``encoders.family`` runs it."""
+    code = ("import json, sys; sys.path[:0] = [sys.argv[1]]; "
+            "import reference.geometry, reference.models, reference.msgpack, counts, encoders; "
+            "fams = [encoders.load(p).__name__ for p in sorted(encoders.DIR.glob('*.py')) "
+            "if p.name != '__init__.py']; "
+            "print(json.dumps([fams, [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'stroke_derenderer_tpu', 'stroke_derenderer_tpu_torch')]]))")
     p = subprocess.run([sys.executable, "-c", code, str(BENCH)], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert p.returncode == 0, p.stderr
-    assert p.stdout.strip() == "[]"
-    for path in (BENCH / "reference").glob("*.py"):
+    families, loaded = json.loads(p.stdout.strip().splitlines()[-1])
+    assert "bench_encoder_resnet" in families and loaded == []
+    for path in [*(BENCH / "reference").glob("*.py"), *(BENCH / "encoders").glob("*.py")]:
         text = path.read_text()
-        assert "stroke_derenderer_tpu" not in text and "import jax" not in text, path
+        assert "stroke_derenderer_tpu" not in text, path
+        assert "import jax" not in text and "from jax" not in text, path
 
 
 def test_result_line_schema():

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+import encoders
 from harness import lines, weights
 from harness.cell import ROOT
 from reference import geometry, models
@@ -70,10 +71,11 @@ def test_unet_matches_program(demo):
 
 @pytest.mark.parametrize("arch,norm", [("resnet18", "group"), ("resnet50", "batch")])
 def test_encoder_matches_program(demo, arch, norm):
+    fam = encoders.family(arch)
     if arch == "resnet18":
         tree = demo["encoder"]
     else:
-        tree = _np_tree(weights.draw(weights.resnet_shapes(arch, norm),
+        tree = _np_tree(weights.draw(fam.shapes({"encoder_arch": arch, "encoder_norm": norm}),
                                      torch.Generator().manual_seed(2), "cpu"))
     kind = "basic" if arch == "resnet18" else "bottleneck"
     port = ResNetEncoder(arch, dtype=torch.float32, norm=norm).eval()
@@ -81,7 +83,7 @@ def test_encoder_matches_program(demo, arch, norm):
     x = torch.randn(2, 224, 224, 3)
     with torch.no_grad():
         want = encode_postprocess(port(x), 14)
-        got = models.resnet(models.to_tensors(tree, "cpu"), x)
+        got = fam.forward(models.to_tensors(tree, "cpu"), x)
     assert torch.allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
@@ -176,7 +178,8 @@ def test_fp8_control_rounds_every_operand(demo):
                             dtype=torch.float32)
     enc = models.to_tensors(demo["encoder"], "cpu")
     imgs = models.normalize_crops(crops, [0.485, 0.456, 0.406], [0.229, 0.224, 0.225])
-    ref = models.resnet(enc, imgs)
+    resnet = encoders.family("resnet18").forward
+    ref = resnet(enc, imgs)
     with models.low_precision("fp8"):
-        low = models.resnet(enc, imgs)
+        low = resnet(enc, imgs)
     assert 0.005 < float((low - ref).norm() / ref.norm()) < 0.2
