@@ -9,6 +9,12 @@ flattens in NHWC row-major order. ``norm`` is ``"group"`` (as shipped) or
 them). ``quant="int8"`` contracts every convolution (the stem, the blocks'
 convolutions and their ``proj``) in int8, as the JAX package does; the
 parameters are the same in either mode.
+
+The glyph encoders by ``encoder_arch``: the ResNets of :data:`ARCHS` and
+the ViTs of ``models.vit.ARCHS``. :func:`make_encoder` builds either from
+a ``StrokesConfig``, and :func:`encoder_kind` and :func:`encoder_width`
+read the tables. A ViT's output is already the decoder's sequence; a
+ResNet's map becomes it through :func:`encode_postprocess`.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from stroke_derenderer_tpu_torch.models import vit
 from stroke_derenderer_tpu_torch.models.layers import (
     conv, make_norm, normalize,
 )
@@ -99,6 +106,7 @@ class ResNetEncoder(nn.Module):
                  quant: str = "none"):
         super().__init__()
         kind, stages, stem, mult = ARCHS[arch]
+        self.kind = kind
         self.dtype = dtype
         self.quant = quant
         self.out_features = stem * 8 * mult
@@ -124,6 +132,48 @@ class ResNetEncoder(nn.Module):
         for block in self.blocks:
             x = block(x)
         return x.float().permute(0, 2, 3, 1)
+
+
+def encoder_kind(arch: str) -> str:
+    """``"basic"`` or ``"bottleneck"`` (a ResNet's blocks) or ``"vit"``."""
+    if arch in ARCHS:
+        return ARCHS[arch][0]
+    if arch in vit.ARCHS:
+        return "vit"
+    raise ValueError(f"unknown encoder_arch {arch!r}: the ResNets are "
+                     f"{sorted(ARCHS)}, the ViTs {sorted(vit.ARCHS)}")
+
+
+def encoder_width(arch: str) -> int:
+    """The feature width C of ``arch``'s sequence."""
+    if encoder_kind(arch) == "vit":
+        return vit.ARCHS[arch][1]
+    _, _, stem, mult = ARCHS[arch]
+    return stem * 8 * mult
+
+
+def make_encoder(config, dtype: torch.dtype = torch.bfloat16) -> nn.Module:
+    """The glyph encoder of a ``StrokesConfig``'s ``encoder_arch`` in
+    ``dtype``, with its ``out_features``. A ViT cuts the crop into
+    patches, so ``encode_image_size`` must be ``image_size // patch``, and
+    it has no int8 path: either mismatch raises a ``ValueError``."""
+    arch = config.encoder_arch
+    if encoder_kind(arch) != "vit":
+        return ResNetEncoder(arch, dtype=dtype, norm=config.encoder_norm,
+                             quant=config.quant)
+    patch = vit.ARCHS[arch][0]
+    if config.quant != "none":
+        raise ValueError(f"encoder_arch {arch!r} is a ViT, which has no "
+                         f"{config.quant} path: its GEMMs run in "
+                         "compute_dtype")
+    if config.image_size % patch or \
+            config.encode_image_size != config.image_size // patch:
+        raise ValueError(
+            f"encoder_arch {arch!r} cuts a {config.image_size}-px crop into "
+            f"{patch}-px patches, so encode_image_size must be "
+            f"{config.image_size // patch} (and image_size a multiple of "
+            f"{patch}), got {config.encode_image_size}")
+    return vit.ViTEncoder(arch, config.image_size, dtype=dtype)
 
 
 def encode_postprocess(enc_map: torch.Tensor,

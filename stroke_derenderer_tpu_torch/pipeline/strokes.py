@@ -1,4 +1,5 @@
-"""Stroke estimation: mask -> glyph groups -> crops -> ResNet encoder ->
+"""Stroke estimation: mask -> glyph groups -> crops -> encoder (a ResNet or
+a ViT, ``models.encoder.make_encoder``) ->
 fused greedy (K1) or beam (K2) decode -> strokes.
 
 Counterpart of ``StrokeEstimator.process_image`` and ``process_images`` of
@@ -39,7 +40,9 @@ While a profile records (``utils.profiling``), ``process_images`` is the
 span ``sd.strokes``; inside it ``components`` and ``grouping`` (the host
 plan, per image, then the packed group-id stack per chunk), ``gather``
 (the upload and the crop gather), ``encode`` (normalization, encoder,
-projection), ``decode`` (the decode launch and what it needs),
+projection; for a ViT, ``encode.vit`` around its forward and the counter
+``encoder_tokens``, the rows of its batch x its tokens), ``decode`` (the
+decode launch and what it needs),
 ``wait`` (the tokens' download), ``polylines`` (tokens to strokes, per
 image); a residual pass's spans, where on, lie inside ``sd.strokes`` as
 the first pass's do.
@@ -61,9 +64,10 @@ from stroke_derenderer_tpu_torch.kernels.fused_decode import (
 )
 from stroke_derenderer_tpu_torch.models.decoder import AttentiveDecoder
 from stroke_derenderer_tpu_torch.models.encoder import (
-    ARCHS, ResNetEncoder, encode_postprocess,
+    encode_postprocess, make_encoder,
 )
 from stroke_derenderer_tpu_torch.models.layers import linear
+from stroke_derenderer_tpu_torch.models.vit import ViTEncoder
 from stroke_derenderer_tpu_torch.ops import grouping
 from stroke_derenderer_tpu_torch.ops.device_partition import (
     PartitionPlan, gather_crops, gather_crops_batched, pack_gid,
@@ -78,11 +82,11 @@ from stroke_derenderer_tpu_torch.ops.strokes import (
 )
 from stroke_derenderer_tpu_torch.parallel.mesh import padded_batch, spmd
 from stroke_derenderer_tpu_torch.utils.profiling import (
-    download, span, upload,
+    COUNTERS, download, span, upload,
 )
 from stroke_derenderer_tpu_torch.weights import (
-    from_flax_decoder, from_flax_encoder, from_flax_projection,
-    init_projection, init_strokes, read_msgpack,
+    encoder_state, from_flax_decoder, from_flax_projection, init_projection,
+    init_strokes, read_msgpack,
 )
 
 
@@ -172,9 +176,13 @@ class StrokeEstimator:
         head's where ``config.projection_dim`` > 0; ``variables``: the
         (encoder, decoder, projection or None) flax trees given in memory
         instead, as an ONNX import gives them; with neither, random weights
-        (``weights.init_strokes``, seed 0). ``config.encoder_norm`` is
-        ``"group"`` or ``"batch"``; ``config.quant`` ``"int8"`` runs the
-        encoder's int8 conv stacks (``ops.quant``). ``mesh``: this rank's
+        (``weights.init_strokes``, seed 0). ``config.encoder_arch`` names a
+        ResNet or a ViT (``models.encoder.make_encoder``, which raises a
+        ``ValueError`` for a ViT under int8 or at an ``encode_image_size``
+        that is not ``image_size // patch``); a ResNet's
+        ``config.encoder_norm`` is ``"group"`` or ``"batch"``;
+        ``config.quant`` ``"int8"`` runs a ResNet's int8 conv stacks
+        (``ops.quant``). ``mesh``: this rank's
         ``parallel.mesh.Mesh``; the pipeline then runs on the mesh's device
         (``device`` is not read)."""
         self.config = cfg = config
@@ -198,14 +206,13 @@ class StrokeEstimator:
             projection = init_projection(cfg)
         else:
             enc_vars, dec_vars, proj_vars = variables
-            encoder = ResNetEncoder(cfg.encoder_arch, dtype=dtype,
-                                    norm=cfg.encoder_norm, quant=cfg.quant)
+            encoder = make_encoder(cfg, dtype)
             decoder = AttentiveDecoder(
                 cfg.vocab_size, cfg.embed_dim, cfg.attention_dim,
                 cfg.decoder_dim, cfg.projection_dim or encoder.out_features,
                 dtype=dtype)
-            encoder.load_state_dict(from_flax_encoder(
-                enc_vars, ARCHS[cfg.encoder_arch][0]))
+            encoder.load_state_dict(encoder_state(enc_vars,
+                                                  cfg.encoder_arch))
             decoder.load_state_dict(from_flax_decoder(dec_vars))
             projection = None
             if cfg.projection_dim:
@@ -227,6 +234,18 @@ class StrokeEstimator:
         """(N, H, W) float32 crops in 0..255 -> normalized (N, H, W, 3):
         per-crop min-max rescale, then ImageNet mean/std."""
         return normalize_crops(x, self.config.mean, self.config.std)
+
+    def _encode(self, images: torch.Tensor) -> torch.Tensor:
+        """Normalized crops -> the encoder's (rows, P, C) sequence. A ViT
+        runs in the span ``sd.strokes.encode.vit`` and counts its tokens,
+        from shapes alone, as ``encoder_tokens``."""
+        if not isinstance(self.encoder, ViTEncoder):
+            return encode_postprocess(self.encoder(images),
+                                      self.config.encode_image_size)
+        with span("sd.strokes.encode.vit"):
+            COUNTERS.add("encoder_tokens",
+                         images.shape[0] * self.encoder.tokens)
+            return self.encoder(images)
 
     @torch.inference_mode()
     def _encode_and_decode(self, crops: torch.Tensor,
@@ -261,9 +280,7 @@ class StrokeEstimator:
                                   device=self.device)
             else:
                 with spmd(mesh):
-                    images = self._normalize_raw(crops)
-                    seq = encode_postprocess(self.encoder(images),
-                                             cfg.encode_image_size)[:n]
+                    seq = self._encode(self._normalize_raw(crops))[:n]
             if self.projection is not None and n:
                 seq = linear(seq.to(self.compute_dtype), self.projection)
             seq = seq.to(self.compute_dtype)

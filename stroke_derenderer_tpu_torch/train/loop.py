@@ -125,6 +125,9 @@ def _unet_layout(config: BinarizerConfig) -> _Layout:
 
 
 def _captioner_layout(config: StrokesConfig) -> _Layout:
+    if config.encoder_arch not in ARCHS:
+        raise ValueError(f"the trainer trains ResNet encoders only; "
+                         f"encoder_arch {config.encoder_arch!r} is not one")
     kind = ARCHS[config.encoder_arch][0]
 
     def sub(sd, prefix):
@@ -534,9 +537,9 @@ def train_captioner(config: StrokesConfig, steps: int, batch_size: int,
     _check_trainable(se_config=config)
     device, mesh, writer = _placement(mesh, device)
     data_seed = seed if data_seed is None else data_seed
+    layout = _captioner_layout(config)
     encoder, decoder = init_strokes(config, seed)
     captioner = Captioner(encoder, decoder)
-    layout = _captioner_layout(config)
     if init_from is not None:
         p = Path(init_from)
         captioner.load_state_dict(layout.from_tree({

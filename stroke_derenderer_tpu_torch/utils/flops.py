@@ -14,6 +14,8 @@ flax ``step``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -42,7 +44,7 @@ def bench_flops_per_image(images: list[np.ndarray], decode_steps: int,
     )
     from stroke_derenderer_tpu_torch.device import dtype_of
     from stroke_derenderer_tpu_torch.models.decoder import AttentiveDecoder
-    from stroke_derenderer_tpu_torch.models.encoder import ResNetEncoder
+    from stroke_derenderer_tpu_torch.models.encoder import make_encoder
     from stroke_derenderer_tpu_torch.models.unet import AttentionUNet
     from stroke_derenderer_tpu_torch.ops.resize import resize_to_height_np
     from stroke_derenderer_tpu_torch.ops.tiling import plan_tiles
@@ -74,8 +76,8 @@ def bench_flops_per_image(images: list[np.ndarray], decode_steps: int,
                                              bin_cfg.width,
                                              bin_cfg.channels)))
         dtype = dtype_of(se_cfg.compute_dtype)
-        encoder = ResNetEncoder(se_cfg.encoder_arch, dtype=dtype,
-                                norm=se_cfg.encoder_norm).eval()
+        encoder = make_encoder(dataclasses.replace(se_cfg, quant="none"),
+                               dtype).eval()
         enc_flops = flops(encoder, torch.zeros((n_glyphs, se_cfg.image_size,
                                                 se_cfg.image_size, 3)))
 

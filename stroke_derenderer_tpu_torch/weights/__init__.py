@@ -21,7 +21,12 @@ each ``BatchNorm``) become the norm layers' running buffers. ``to_flax_*``
 are their exact inverses for the params; ``*_variables`` give the whole
 variables dict, ``batch_stats`` included where the model has batch norms.
 The projection head (``strokes_projection.msgpack``) is a flax ``Dense``,
-an ``nn.Linear`` here.
+an ``nn.Linear`` here. A ViT glyph encoder has no JAX counterpart; its
+``strokes_encoder.msgpack`` holds the flax layout that
+:func:`from_flax_vit` reads (HF's Flax ViT: 2-D q, k and v kernels, so
+that a kernel's fan-in is its first axis, and an ``out`` kernel (heads,
+head_dim, hidden) that shows the head count). :func:`encoder_state` and
+:func:`encoder_tree` read and write either kind by ``encoder_arch``.
 
 :func:`init_binarizer`, :func:`init_strokes` and :func:`init_projection`
 draw fresh parameters with flax's initializer families from a seeded
@@ -254,6 +259,45 @@ def from_flax_encoder(tree: dict, kind: str) -> dict:
     return sd
 
 
+def from_flax_vit(tree: dict) -> dict:
+    """A ViT's flax-layout params -> ``models.vit.ViTEncoder`` state: the
+    patch kernel (p, p, 3, hidden) HWIO, flattened in the patch's (row,
+    column, channel) order; ``cls`` and ``pos`` ``embedding`` leaves; per
+    ``Block_i`` the (in, out) ``query``, ``key`` and ``value`` kernels
+    concatenated into one qkv GEMM, the ``out`` kernel (heads, head_dim,
+    hidden) flattened head-major; ``LayerNorm_final``."""
+    p = _params(tree)
+
+    def dense(prefix, q):
+        k = np.asarray(q["kernel"])
+        sd[f"{prefix}.weight"] = _t(k.reshape(-1, k.shape[-1]).T)
+        sd[f"{prefix}.bias"] = _t(q["bias"])
+
+    def norm(prefix, q):
+        sd[f"{prefix}.weight"] = _t(q["scale"])
+        sd[f"{prefix}.bias"] = _t(q["bias"])
+
+    sd: dict = {}
+    dense("patch", p["patch"])
+    sd["cls"] = _t(p["cls"]["embedding"])
+    sd["pos"] = _t(p["pos"]["embedding"])
+    i = 0
+    while f"Block_{i}" in p:
+        q, pre = p[f"Block_{i}"], f"blocks.{i}"
+        norm(f"{pre}.ln1", q["LayerNorm_0"])
+        sd[f"{pre}.qkv.weight"] = _t(np.concatenate(
+            [q[n]["kernel"] for n in ("query", "key", "value")], 1).T)
+        sd[f"{pre}.qkv.bias"] = _t(np.concatenate(
+            [q[n]["bias"] for n in ("query", "key", "value")]))
+        dense(f"{pre}.out", q["out"])
+        norm(f"{pre}.ln2", q["LayerNorm_1"])
+        dense(f"{pre}.fc1", q["Dense_0"])
+        dense(f"{pre}.fc2", q["Dense_1"])
+        i += 1
+    norm("norm", p["LayerNorm_final"])
+    return sd
+
+
 def from_flax_projection(tree: dict) -> dict:
     """The projection head's flax Dense params -> ``nn.Linear`` state."""
     p = _params(tree)
@@ -457,6 +501,61 @@ def to_flax_encoder(sd: dict, kind: str) -> dict:
     return encoder_variables(sd, kind)["params"]
 
 
+def vit_variables(sd: dict, heads: int) -> dict:
+    """``models.vit.ViTEncoder`` state -> flax variables (params only);
+    the inverse of :func:`from_flax_vit`. ``heads`` shapes the ``out``
+    kernel (heads, head_dim, hidden), which the state does not record."""
+    g = {k: _np(v) for k, v in sd.items()}
+
+    def dense(prefix, shape=None):
+        k = np.ascontiguousarray(g[f"{prefix}.weight"].T)
+        return {"kernel": k if shape is None else k.reshape(shape),
+                "bias": g[f"{prefix}.bias"]}
+
+    def norm(prefix):
+        return {"scale": g[f"{prefix}.weight"], "bias": g[f"{prefix}.bias"]}
+
+    hidden = g["cls"].shape[-1]
+    patch = int(round((g["patch.weight"].shape[1] // 3) ** 0.5))
+    p = {"patch": dense("patch", (patch, patch, 3, hidden)),
+         "cls": {"embedding": g["cls"]}, "pos": {"embedding": g["pos"]},
+         "LayerNorm_final": norm("norm")}
+    i = 0
+    while f"blocks.{i}.qkv.weight" in g:
+        pre = f"blocks.{i}"
+        qkv = dense(f"{pre}.qkv")
+        block = {"LayerNorm_0": norm(f"{pre}.ln1"),
+                 "out": dense(f"{pre}.out", (heads, hidden // heads, hidden)),
+                 "LayerNorm_1": norm(f"{pre}.ln2"),
+                 "Dense_0": dense(f"{pre}.fc1"),
+                 "Dense_1": dense(f"{pre}.fc2")}
+        for j, n in enumerate(("query", "key", "value")):
+            cols = slice(j * hidden, (j + 1) * hidden)
+            block[n] = {"kernel": np.ascontiguousarray(qkv["kernel"][:, cols]),
+                        "bias": qkv["bias"][cols].copy()}
+        p[f"Block_{i}"] = block
+        i += 1
+    return {"params": p}
+
+
+def encoder_state(tree: dict, arch: str) -> dict:
+    """The flax tree of the glyph encoder ``arch`` -> the state of
+    ``models.encoder.make_encoder``'s module."""
+    from stroke_derenderer_tpu_torch.models.encoder import encoder_kind
+    kind = encoder_kind(arch)
+    return from_flax_vit(tree) if kind == "vit" else \
+        from_flax_encoder(tree, kind)
+
+
+def encoder_tree(encoder) -> dict:
+    """A glyph encoder module (``models.encoder.make_encoder``'s) -> its
+    flax variables; the inverse of :func:`encoder_state`."""
+    from stroke_derenderer_tpu_torch.models.vit import ViTEncoder
+    if isinstance(encoder, ViTEncoder):
+        return vit_variables(encoder.state_dict(), encoder.heads)
+    return encoder_variables(encoder.state_dict(), encoder.kind)
+
+
 def to_flax_projection(sd: dict) -> dict:
     """``nn.Linear`` state -> the projection head's flax Dense params."""
     return {"kernel": np.ascontiguousarray(_np(sd["weight"]).T),
@@ -542,27 +641,24 @@ def init_binarizer(config, seed: int = 0):
 
 
 def init_strokes(config, seed: int = 0):
-    """Freshly initialized (``ResNetEncoder``, ``AttentiveDecoder``) (float32
-    parameters on the CPU) for ``config`` (a ``StrokesConfig``); the encoder
-    draws first, then the decoder, from one generator. The decoder reads
-    ``projection_dim`` features where there is a projection head
-    (:func:`init_projection`)."""
+    """Freshly initialized (encoder, ``AttentiveDecoder``) (on the CPU;
+    ResNet and decoder parameters float32, a ViT's in ``compute_dtype``)
+    for ``config`` (a ``StrokesConfig``; the encoder
+    ``models.encoder.make_encoder``'s); the encoder draws first, then the
+    decoder, from one generator. The decoder reads ``projection_dim``
+    features where there is a projection head (:func:`init_projection`)."""
     from stroke_derenderer_tpu_torch.device import dtype_of
     from stroke_derenderer_tpu_torch.models.decoder import AttentiveDecoder
-    from stroke_derenderer_tpu_torch.models.encoder import (
-        ARCHS, ResNetEncoder,
-    )
+    from stroke_derenderer_tpu_torch.models.encoder import make_encoder
     dtype = dtype_of(config.compute_dtype)
-    kind = ARCHS[config.encoder_arch][0]
-    encoder = ResNetEncoder(config.encoder_arch, dtype=dtype,
-                            norm=config.encoder_norm, quant=config.quant)
+    encoder = make_encoder(config, dtype)
     decoder = AttentiveDecoder(config.vocab_size, config.embed_dim,
                                config.attention_dim, config.decoder_dim,
                                config.projection_dim or encoder.out_features,
                                dtype=dtype)
     gen = torch.Generator().manual_seed(seed)
-    encoder.load_state_dict(from_flax_encoder(_init_tree(_merged(
-        encoder_variables(encoder.state_dict(), kind)), gen), kind))
+    encoder.load_state_dict(encoder_state(_init_tree(_merged(
+        encoder_tree(encoder)), gen), config.encoder_arch))
     decoder.load_state_dict(from_flax_decoder(
         _init_tree(to_flax_decoder(decoder.state_dict()), gen)))
     return encoder, decoder
@@ -572,11 +668,11 @@ def init_projection(config, seed: int = 0):
     """A freshly initialized projection head (``nn.Linear`` from the
     encoder's features to ``projection_dim``) for ``config``, from a
     generator of its own (seeded ``seed + 1``); None without a projection."""
-    from stroke_derenderer_tpu_torch.models.encoder import ARCHS
+    from stroke_derenderer_tpu_torch.models.encoder import encoder_width
     if not config.projection_dim:
         return None
-    _, _, stem, mult = ARCHS[config.encoder_arch]
-    proj = torch.nn.Linear(stem * 8 * mult, config.projection_dim)
+    proj = torch.nn.Linear(encoder_width(config.encoder_arch),
+                           config.projection_dim)
     proj.load_state_dict(from_flax_projection(_init_tree(
         to_flax_projection(proj.state_dict()),
         torch.Generator().manual_seed(seed + 1))))
@@ -625,7 +721,6 @@ def materialize_model_dir(model_dir, bin_config=None, strokes_config=None,
     from stroke_derenderer_tpu_torch.config import (
         BinarizerConfig, StrokesConfig,
     )
-    from stroke_derenderer_tpu_torch.models.encoder import ARCHS
     bin_config = bin_config or BinarizerConfig()
     strokes_config = strokes_config or StrokesConfig()
     encoder, decoder = init_strokes(strokes_config, seed)
@@ -633,7 +728,6 @@ def materialize_model_dir(model_dir, bin_config=None, strokes_config=None,
     save_model_files(
         model_dir, unet_variables(init_binarizer(bin_config, seed).state_dict(),
                                   len(bin_config.features)), bin_config,
-        encoder_variables(encoder.state_dict(),
-                          ARCHS[strokes_config.encoder_arch][0]),
+        encoder_tree(encoder),
         to_flax_decoder(decoder.state_dict()), strokes_config,
         None if proj is None else to_flax_projection(proj.state_dict()))

@@ -184,6 +184,9 @@ def export_encoder_graph(config, variables, path: str | Path) -> None:
     (NCHW: (B,3,224,224) -> (B,C,7,7) feature map)."""
     from stroke_derenderer_tpu_torch.models.encoder import ARCHS
 
+    if config.encoder_arch not in ARCHS:
+        raise ValueError(f"ONNX export writes ResNet encoders only; "
+                         f"encoder_arch {config.encoder_arch!r} is not one")
     kind, stages, stem, _ = ARCHS[config.encoder_arch]
     params = variables["params"]
     stats = variables.get("batch_stats", {})
